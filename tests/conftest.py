@@ -38,3 +38,8 @@ def hdk():
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(42)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none")
