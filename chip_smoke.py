@@ -8,15 +8,26 @@ Phases, each printed as it runs:
      exits non-zero when CUDA is not available;
   2. build: compiles the CUDA kernels from hdk_tpu_torch/csrc;
   3. kernels: each histogram kernel against its plain PyTorch version on
-     the card, at 100M rows and the main path's segment counts;
+     the card, at 100M rows and the main path's segment counts (random
+     ids; sorted ids at the sort route's 50M-group buffer);
   4. the main path through the public entry points: taxi Q1-Q4 (builder
      API, 100M rows), TPC-H Q1/Q6 (SQL, 60M lineitem rows) and a NULL-heavy
      GROUP BY (SQL, 10M rows), each checked against a numpy oracle and
-     required to have run its histogram kernels.
-The line before the last is a JSON object with the per-kernel results;
-the last line is {"ok": true, "device": {...}}.  Any failure raises, so
-the script exits non-zero and prints no result.  Needs numpy and torch;
-imports neither jax, pandas nor pyarrow.
+     required to have run its histogram kernels;
+  5. the sort-based GROUP BY at high NDV (bench_suite's shape, 100M rows,
+     ~43M groups of 50M possible keys): HN1 ``agg("k", "count",
+     "sum(v)")`` and HN2 the same count sorted descending, LIMIT 100;
+  6. holistic aggregates (SQL, 10M rows): COUNT/SUM DISTINCT, STDDEV,
+     MEDIAN over a packed key on the sort route, COUNT DISTINCT and
+     QUANTILE on the dense route, HLL and t-digest sketches over a float
+     key, and the first query again in a session whose group buffer
+     starts below the group count (one widen-retry).
+Phases 5-6 are the sort route: their kernel launches count apart from
+phase 4's, and every kernel must launch on both.  The line before the
+last is a JSON object with the per-kernel results; the last line is
+{"ok": true, "device": {...}}.  Any failure raises, so the script exits
+non-zero and prints no result.  Needs numpy and torch; imports neither
+jax, pandas nor pyarrow.
 """
 
 from __future__ import annotations
@@ -34,6 +45,10 @@ import torch
 TAXI_ROWS = 100_000_000
 LINEITEM_ROWS = 60_000_000
 NULLS_ROWS = 10_000_000
+HIGH_NDV_ROWS = 100_000_000
+HIGH_NDV_KEYS = 50_000_000
+HOLISTIC_ROWS = 10_000_000
+SKETCH_PREFIX_ROWS = 1_000_000
 KERNEL_ROWS = 100_000_000
 REPEATS = 5
 
@@ -158,8 +173,10 @@ def equal(got, want, what: str) -> None:
 
 # -- phase 3 ------------------------------------------------------------
 
-def kernel_phase(hist, entries, card):
-    """Every kernel against its plain version at KERNEL_ROWS rows."""
+def kernel_phase(hist, entries, sorted_entries, card):
+    """Every kernel against its plain version at KERNEL_ROWS rows: over
+    random group ids at each of ``entries`` segments, and over sorted ids
+    at each of ``sorted_entries`` (the sort route's buffers)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
     n = KERNEL_ROWS
@@ -188,10 +205,16 @@ def kernel_phase(hist, entries, card):
         ("groupby_sums", "float64", hist.groupby_sums, hist.groupby_sums_ref),
     ]
     report = {}
-    for e in entries:
-        # gids beyond both ends: those rows must drop out
-        gid = torch.randint(-2, e + 2, (n,), device=dev, generator=gen,
-                            dtype=torch.int32)
+    for e, is_sorted in ([(e, False) for e in entries]
+                         + [(e, True) for e in sorted_entries]):
+        if is_sorted:
+            gid = torch.sort(torch.randint(0, e, (n,), device=dev,
+                                           generator=gen,
+                                           dtype=torch.int32)).values
+        else:
+            # gids beyond both ends: those rows must drop out
+            gid = torch.randint(-2, e + 2, (n,), device=dev, generator=gen,
+                                dtype=torch.int32)
         for name, kind, kern, ref in cases:
             v = slots[kind] if kind else None
             got = kern(gid, v, e)
@@ -210,12 +233,13 @@ def kernel_phase(hist, entries, card):
             ms = cuda_ms(lambda: kern(gid, v, e))
             plain_ms = cuda_ms(lambda: ref(gid, v, e))
             log(f"kernel {name:15s} slots={kind or '-':8s} N={n} E={e:6d} "
-                f"ok ({tol}) max_abs_err={err!r} kernel_ms={ms!r} "
+                f"{'sorted ' if is_sorted else ''}ok ({tol}) "
+                f"max_abs_err={err!r} kernel_ms={ms!r} "
                 f"plain_ms={plain_ms!r} [{card}]")
             rec = report.setdefault(name, {"max_abs_err": 0.0, "cases": []})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec["cases"].append({"slots": kind, "E": e, "ms": ms,
-                                 "plain_ms": plain_ms})
+            rec["cases"].append({"slots": kind, "E": e, "sorted": is_sorted,
+                                 "ms": ms, "plain_ms": plain_ms})
         del gid
     return report
 
@@ -235,7 +259,7 @@ def timed_query(run, card: str, label: str, rows: int, hist, want_kernels):
         check(used[k] > 0, f"{label}: kernel {k} never launched ({used})")
     warm = []
     for _ in range(3):
-        torch.cuda.synchronize()
+        res.block()
         t0 = time.perf_counter()
         run().block()
         warm.append(time.perf_counter() - t0)
@@ -394,6 +418,308 @@ def nulls_phase(hdk, card, hist):
     hdk.drop_table("t")
 
 
+# -- phases 5-6: the sort route -------------------------------------------
+
+class EntryRecorder:
+    """Largest segment count each histogram kernel was launched with while
+    active, read from the launches themselves (``hist._launch``); the
+    wrappers and their launch counters are untouched."""
+
+    # kernel entry point prefix -> (wrapper name, position of E in args)
+    ENTRY = (("hdk_count_hist", "count_hist", 2),
+             ("hdk_groupby_sums2_", "groupby_sums2", 4),
+             ("hdk_seg_sums_exact_", "seg_sums_exact", 4),
+             ("hdk_groupby_sums_", "groupby_sums", 4))
+
+    def __init__(self, hist):
+        self.hist = hist
+        self.max_e = {name: 0 for _, name, _ in self.ENTRY}
+        self._orig = None
+
+    def __enter__(self):
+        self._orig = orig = self.hist._launch
+
+        def launch(entry, gid, *args):
+            for prefix, name, pos in self.ENTRY:
+                if entry.startswith(prefix):
+                    self.max_e[name] = max(self.max_e[name], int(args[pos]))
+                    break
+            return orig(entry, gid, *args)
+
+        self.hist._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.hist._launch = self._orig
+
+
+def gen_high_ndv(rows: int, keys: int):
+    """bench_suite.bench_high_ndv's columns and seed."""
+    rng = np.random.default_rng(12)
+    return {"k": rng.integers(0, keys, rows), "v": rng.integers(0, 1000, rows)}
+
+
+def high_ndv_phase(hdk, card, hist, rows=HIGH_NDV_ROWS, keys=HIGH_NDV_KEYS,
+                   want=("count_hist", "seg_sums_exact")):
+    t0 = time.perf_counter()
+    data = gen_high_ndv(rows, keys)
+    counts = np.bincount(data["k"], minlength=keys)
+    sums = np.bincount(data["k"], weights=data["v"], minlength=keys)
+    present = np.flatnonzero(counts)
+    log(f"high-NDV data: {rows} rows, {present.size} distinct keys of "
+        f"{keys}; data and oracle in {time.perf_counter() - t0:.1f} s")
+    ht = hdk.import_pydict(data, name="ndv_t")
+
+    res = timed_query(lambda: ht.agg("k", "count", "sum(v)").run(), card,
+                      "HN1", rows, hist, want)
+    out = res.to_numpy()
+    equal(out["k"], present, "HN1 keys")
+    equal(out["count"], counts[present], "HN1 count")
+    equal(out["v_sum"], sums[present].astype(np.int64), "HN1 sum(v)")
+    log(f"HN1: group buffer cap {hdk._executor._groupby_cap} for "
+        f"{present.size} groups, NDV estimate "
+        f"{hdk._executor._ndv_estimate}")
+    del out, res
+
+    res = timed_query(
+        lambda: ht.agg("k", "count").sort(("count", "desc"), limit=100).run(),
+        card, "HN2", rows, hist, [k for k in want if k == "count_hist"])
+    out = res.to_numpy()
+    # ties (Poisson counts) keep the key order
+    top = np.argsort(-counts[present], kind="stable")[:100]
+    equal(out["k"], present[top], "HN2 keys")
+    equal(out["count"], counts[present][top], "HN2 count")
+    hdk.drop_table("ndv_t")
+
+
+def gen_holistic(rows: int):
+    """k int64 in [0, 5M) with 5% NULLs (above the dense limit: the packed
+    sort route), g int32 in [0, 1000), x int64 and y float64 N(50, 20)
+    with 10% NULLs each, r = round(y, 1) as a float key (no ranges: the
+    NDV estimate sizes its buffer)."""
+    rng = np.random.default_rng(31)
+    y0 = rng.normal(50.0, 20.0, rows)
+    return {
+        "k": np.ma.MaskedArray(rng.integers(0, 5_000_000, rows),
+                               rng.random(rows) < 0.05),
+        "g": rng.integers(0, 1000, rows).astype(np.int32),
+        "x": np.ma.MaskedArray(rng.integers(-10**12, 10**12, rows),
+                               rng.random(rows) < 0.1),
+        "y": np.ma.MaskedArray(y0, rng.random(rows) < 0.1),
+        "r": np.round(y0, 1),
+    }
+
+
+HOLISTIC_Q1 = ("SELECT k, COUNT(*) AS n, COUNT(DISTINCT g) AS nd_g, "
+               "SUM(DISTINCT g) AS sd_g, MIN(y) AS min_y, MAX(x) AS max_x, "
+               "STDDEV_SAMP(y) AS sd_y, MEDIAN(y) AS med_y FROM h "
+               "GROUP BY k ORDER BY k")
+HOLISTIC_Q2 = ("SELECT g, COUNT(DISTINCT k) AS nd_k, QUANTILE(y, 0.25) AS q_y "
+               "FROM h GROUP BY g ORDER BY g")
+HOLISTIC_Q3 = ("SELECT r, APPROX_COUNT_DISTINCT(x) AS hll_x, "
+               "APPROX_QUANTILE(y, 0.9) AS td_y FROM h GROUP BY r ORDER BY r")
+
+
+def _spans(sorted_ids: np.ndarray):
+    """(run starts, run lengths) of a sorted id array."""
+    starts = np.flatnonzero(np.r_[True, sorted_ids[1:] != sorted_ids[:-1]])
+    return starts, np.diff(np.r_[starts, sorted_ids.size])
+
+
+def _group_quantile(ids, vals, q):
+    """(group ids, exact linear-interpolated quantile per group)."""
+    order = np.lexsort((vals, ids))
+    sid, sv = ids[order], vals[order]
+    starts, cnt = _spans(sid)
+    pos = q * (cnt - 1).astype(np.float64)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.ceil(pos).astype(np.int64)
+    lo_v, hi_v = sv[starts + lo], sv[starts + hi]
+    return sid[starts], lo_v + (hi_v - lo_v) * (pos - lo)
+
+
+def _distinct_pairs(ids, vals):
+    """(group ids, distinct value count, distinct value sum) per group."""
+    order = np.lexsort((vals, ids))
+    sid, sv = ids[order], vals[order]
+    first = np.r_[True, (sid[1:] != sid[:-1]) | (sv[1:] != sv[:-1])]
+    starts, _ = _spans(sid)
+    csum = np.cumsum(first)
+    ends = np.r_[starts[1:], sid.size]
+    n_distinct = csum[ends - 1] - np.r_[0, csum[ends[:-1] - 1]]
+    vsum = np.add.reduceat(np.where(first, sv, 0), starts)
+    return sid[starts], n_distinct, vsum
+
+
+def holistic_q1_check(out, data, what):
+    k = data["k"]
+    kv = ~np.ma.getmaskarray(k)
+    kd = np.where(kv, np.ma.getdata(k), 5_000_000)  # NULL key last
+    keys = np.unique(kd)
+    equal(np.ma.getdata(out["k"])[~np.ma.getmaskarray(out["k"])],
+          keys[keys < 5_000_000], f"{what} keys")
+    check(np.ma.getmaskarray(out["k"]).sum() == (not kv.all()),
+          f"{what}: one NULL key group")
+    slot = np.searchsorted(keys, kd)
+    equal(out["n"], np.bincount(slot), f"{what} count(*)")
+    gid, nd, gsum = _distinct_pairs(slot, data["g"].astype(np.int64))
+    equal(gid, np.arange(keys.size), f"{what} groups")
+    equal(np.ma.getdata(out["nd_g"]), nd, f"{what} count(distinct g)")
+    equal(np.ma.getdata(out["sd_g"]), gsum, f"{what} sum(distinct g)")
+    yv = ~np.ma.getmaskarray(data["y"])
+    y = np.ma.getdata(data["y"])
+    n_y = np.bincount(slot[yv], minlength=keys.size)
+    has_y = n_y > 0
+    ymin = np.full(keys.size, np.inf)
+    np.minimum.at(ymin, slot[yv], y[yv])
+    equal(~np.ma.getmaskarray(out["min_y"]), has_y, f"{what} min(y) nulls")
+    equal(np.ma.getdata(out["min_y"])[has_y], ymin[has_y], f"{what} min(y)")
+    xv = ~np.ma.getmaskarray(data["x"])
+    xmax = np.full(keys.size, np.iinfo(np.int64).min)
+    np.maximum.at(xmax, slot[xv], np.ma.getdata(data["x"])[xv])
+    has_x = np.bincount(slot[xv], minlength=keys.size) > 0
+    equal(~np.ma.getmaskarray(out["max_x"]), has_x, f"{what} max(x) nulls")
+    equal(np.ma.getdata(out["max_x"])[has_x], xmax[has_x], f"{what} max(x)")
+    # STDDEV: a two-pass oracle; the engine's sum-of-squares formula
+    # loses up to ~8 eps * sum(y^2) of the variance to cancellation
+    s1 = np.bincount(slot[yv], weights=y[yv], minlength=keys.size)
+    mean = s1 / np.maximum(n_y, 1)
+    dev2 = np.bincount(slot[yv], weights=(y[yv] - mean[slot[yv]]) ** 2,
+                       minlength=keys.size)
+    sq = np.bincount(slot[yv], weights=y[yv] ** 2, minlength=keys.size)
+    two = n_y > 1
+    equal(~np.ma.getmaskarray(out["sd_y"]), two, f"{what} stddev_samp nulls")
+    sd = np.sqrt(dev2[two] / (n_y[two] - 1))
+    var_err = 8 * np.finfo(np.float64).eps * sq[two] / (n_y[two] - 1)
+    sd_err = np.where(sd > 0, var_err / (2 * np.maximum(sd, 1e-300)),
+                      np.sqrt(var_err))
+    got = np.ma.getdata(out["sd_y"])[two]
+    check(np.all(np.abs(got - sd) <= 1e-9 * sd + sd_err),
+          f"{what} stddev_samp: outside rtol 1e-9 + the formula's bound")
+    equal(~np.ma.getmaskarray(out["med_y"]), has_y, f"{what} median nulls")
+    gq, med = _group_quantile(slot[yv], y[yv], 0.5)
+    close(np.ma.getdata(out["med_y"])[gq], med, 1e-9, f"{what} median(y)")
+
+
+def holistic_phase(hdk_mod, hdk, card, hist, rows=HOLISTIC_ROWS,
+                   prefix_rows=SKETCH_PREFIX_ROWS,
+                   want=("count_hist", "groupby_sums2", "seg_sums_exact",
+                         "groupby_sums")):
+    t0 = time.perf_counter()
+    data = gen_holistic(rows)
+    log(f"holistic data: {rows} rows in {time.perf_counter() - t0:.1f} s")
+    hdk.import_pydict(data, name="h")
+    before = hist.launches()
+    res1 = timed_query(lambda: hdk.sql(HOLISTIC_Q1), card, "holistic_q1",
+                       rows, hist, [k for k in want
+                                    if k in ("count_hist", "groupby_sums")])
+    q1 = res1.to_numpy()
+    holistic_q1_check(q1, data, "holistic_q1")
+
+    res = timed_query(lambda: hdk.sql(HOLISTIC_Q2), card, "holistic_q2",
+                      rows, hist, [k for k in want if k == "count_hist"])
+    out = res.to_numpy()
+    kv = ~np.ma.getmaskarray(data["k"])
+    _, nd, _ = _distinct_pairs(data["g"][kv].astype(np.int64),
+                               np.ma.getdata(data["k"])[kv])
+    equal(out["g"], np.arange(1000), "holistic_q2 keys")
+    equal(out["nd_k"], nd, "holistic_q2 count(distinct k)")
+    yv = ~np.ma.getmaskarray(data["y"])
+    gq, q25 = _group_quantile(data["g"][yv].astype(np.int64),
+                              np.ma.getdata(data["y"])[yv], 0.25)
+    close(np.ma.getdata(out["q_y"])[gq], q25, 1e-9,
+          "holistic_q2 quantile(y, 0.25)")
+
+    res = timed_query(lambda: hdk.sql(HOLISTIC_Q3), card, "holistic_q3",
+                      rows, hist, [])
+    out = res.to_numpy()
+    sketch_exact_check(out, data, hdk._executor, "holistic_q3")
+    used = {k: hist.launches()[k] - before[k] for k in before}
+    for k in want:
+        check(used[k] > 0, f"holistic phase: kernel {k} never launched")
+
+    # the same sketches on a prefix, on the CPU: equal to the card's
+    prefix = {c: v[:prefix_rows] for c, v in data.items()}
+    outs = []
+    for session in (hdk, hdk_mod.HDK(device="cpu")):
+        session.import_pydict(prefix, name="hp")
+        outs.append(session.sql(HOLISTIC_Q3.replace("FROM h ", "FROM hp "))
+                    .to_numpy())
+    card_out, cpu_out = outs
+    equal(card_out["r"], cpu_out["r"], "sketch prefix keys")
+    equal(card_out["hll_x"], cpu_out["hll_x"], "sketch prefix HLL (exact)")
+    close(np.ma.getdata(card_out["td_y"]), np.ma.getdata(cpu_out["td_y"]),
+          1e-9,
+          "sketch prefix t-digest")
+    log(f"sketches on a {prefix_rows}-row prefix: card equals CPU (HLL "
+        f"exactly, t-digest to rtol 1e-9)")
+    hdk.drop_table("hp")
+
+    # a group buffer below the group count: exactly one widen-retry
+    small = hdk_mod.HDK(device=hdk.device.type,
+                        **{"exec.group_by.default_max_groups": 1 << 20})
+    small.import_pydict(data, name="h")
+    got = small.sql(HOLISTIC_Q1).to_numpy()
+    attempts = small._executor._groupby_attempts
+    check(attempts == 2, f"retry session: {attempts} attempts, want 2")
+    for name in q1:
+        equal(np.ma.getmaskarray(got[name]), np.ma.getmaskarray(q1[name]),
+              f"retry session {name} nulls")
+        if q1[name].dtype.kind == "f":
+            close(np.ma.filled(got[name], 0.0), np.ma.filled(q1[name], 0.0),
+                  1e-9, f"retry session {name}")
+        else:
+            equal(np.ma.getdata(got[name]), np.ma.getdata(q1[name]),
+                  f"retry session {name}")
+    log(f"retry session: default_max_groups 2^20 < {len(q1['n'])} "
+        f"groups, {attempts} attempts, same result")
+    hdk.drop_table("h")
+
+
+def sketch_exact_check(out, data, executor, what):
+    """HLL within 4 standard errors (1.04/sqrt(m)) of the exact distinct
+    count, plus one for a register collision of linear counting; the
+    t-digest's 0.9-quantile within 1% rank (plus one row) of the group's
+    values."""
+    r = data["r"]
+    keys = np.unique(r)
+    equal(out["r"], keys, f"{what} keys")
+    slot = np.searchsorted(keys, r)
+    xv = ~np.ma.getmaskarray(data["x"])
+    _, nd, _ = _distinct_pairs(slot[xv], np.ma.getdata(data["x"])[xv])
+    has_x = np.bincount(slot[xv], minlength=keys.size) > 0
+    exact = np.zeros(keys.size, np.int64)
+    exact[has_x] = nd
+    from hdk_tpu_torch.ops import sketches
+
+    g = executor.config.exec.group_by
+    cap = executor._groupby_cap
+    p = sketches.effective_hll_p(g.hll_precision, cap, g.hll_register_budget)
+    bound = 4 * 1.04 / np.sqrt(1 << p)
+    est = out["hll_x"]
+    rel = np.abs(est - exact) / np.maximum(exact, 1)
+    check(np.all(np.abs(est - exact) <= bound * exact + 1),
+          f"{what} HLL beyond its error bound (max rel {rel.max()})")
+    yv = ~np.ma.getmaskarray(data["y"])
+    y = np.ma.getdata(data["y"])
+    order = np.lexsort((y[yv], slot[yv]))
+    sid, sv = slot[yv][order], y[yv][order]
+    starts, cnt = _spans(sid)
+    worst = 0.0
+    qv = np.ma.getdata(out["td_y"])
+    for gi, st, n in zip(sid[starts], starts, cnt):
+        vals = sv[st:st + n]
+        lo = np.searchsorted(vals, qv[gi], "left") / n
+        hi = np.searchsorted(vals, qv[gi], "right") / n
+        err = 0.0 if lo <= 0.9 <= hi else min(abs(lo - 0.9), abs(hi - 0.9))
+        check(err <= 0.01 + 1.0 / n,
+              f"{what} t-digest group {gi}: rank error {err}")
+        worst = max(worst, err)
+    log(f"{what}: HLL p={p} max rel err {rel.max()!r} (bound "
+        f"{bound!r}); t-digest max rank err {worst!r} over {keys.size} "
+        f"groups")
+
+
 REPLACES = {
     "count_hist": "hdk_tpu/ops/pallas_hist2.py:89",
     "groupby_sums2": "hdk_tpu/ops/pallas_groupby.py:180",
@@ -434,7 +760,8 @@ def main() -> None:
     # phase 3: kernels against their plain versions; the group-by hands
     # them entry_count + 1 segments (the last one discards dead rows)
     entries = (11, 12, taxi_q4_entries(taxi) + 1, 65536)
-    report = kernel_phase(hist, entries, card)
+    # HN1's group buffer: 50M keys + a NULL slot, + the discard segment
+    report = kernel_phase(hist, entries, (HIGH_NDV_KEYS + 2,), card)
     torch.cuda.empty_cache()
 
     # phase 4: the main path; counters count its launches only
@@ -449,12 +776,26 @@ def main() -> None:
     launches = hist.launches()
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the main path")
+
+    # phases 5-6: the sort route, its launches counted apart
+    torch.cuda.empty_cache()
+    hist.reset_launches()
+    with EntryRecorder(hist) as recorder:
+        high_ndv_phase(hdk, card, hist)
+        holistic_phase(hdk_tpu_torch, hdk, card, hist)
+    sort_launches = hist.launches()
+    for name, n in sort_launches.items():
+        check(n > 0, f"kernel {name} never launched on the sort route")
+        log(f"sort route: kernel {name} launches={n} "
+            f"largest_E={recorder.max_e[name]}")
     check("jax" not in sys.modules, "jax was imported")
+    check("pandas" not in sys.modules, "pandas was imported")
 
     kernels = []
     for name, rec in report.items():
         # ms / plain_ms at the taxi Q4 segment count, first slot dtype
         q4 = next(c for c in rec["cases"] if c["E"] == entries[2])
+        srt = next(c for c in rec["cases"] if c["sorted"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "hdk_tpu_torch/csrc/hist.cu",
@@ -462,6 +803,10 @@ def main() -> None:
             "max_abs_err": rec["max_abs_err"], "ms": q4["ms"],
             "plain_ms": q4["plain_ms"],
             "shape": f"N={KERNEL_ROWS} E={q4['E']} slots={q4['slots']}",
+            "sort_route_launches": sort_launches[name],
+            "sort_route_largest_E": recorder.max_e[name],
+            "sorted_E": srt["E"], "sorted_ms": srt["ms"],
+            "sorted_plain_ms": srt["plain_ms"],
         })
     print(card)  # as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}))

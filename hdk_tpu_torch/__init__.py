@@ -1,10 +1,11 @@
 """hdk_tpu_torch — the PyTorch/CUDA port of hdk_tpu's query engine.
 
-This slice runs the single-table aggregate query: scan -> Project/Filter
-chain -> dense (perfect-hash) GROUP BY or scalar aggregate -> ORDER BY /
-LIMIT -> result, on an explicit torch device.  The histograms of the
-group-by run hand-written CUDA kernels (``csrc/hist.cu``) on a CUDA
-device and their plain PyTorch versions on the CPU.
+The port runs the single-table aggregate query: scan -> Project/Filter
+chain -> GROUP BY (dense perfect-hash or sort-based, every aggregate but
+TOP_K/BOTTOM_K) or scalar aggregate -> ORDER BY / LIMIT -> result, on an
+explicit torch device.  The histograms of the group-by run hand-written
+CUDA kernels (``csrc/hist.cu``) on a CUDA device and their plain PyTorch
+versions on the CPU.
 
     import hdk_tpu_torch
     hdk = hdk_tpu_torch.HDK(device="cuda")
@@ -12,10 +13,9 @@ device and their plain PyTorch versions on the CPU.
     res = ht.agg("a", "sum(b)").run()
     res.to_numpy()
 
-Routes outside the slice (sort-based group-by, joins, windows, UNION,
-VALUES, UNNEST, fragment-streamed aggregation, multi-device sessions,
-UDFs, COUNT DISTINCT, quantiles, sketches, TOP_K) raise
-``NotImplementedError`` naming their ROADMAP item.
+Routes not ported yet (joins, windows, UNION, VALUES, UNNEST, TOP_K and
+BOTTOM_K, fragment-streamed aggregation, multi-device sessions, UDFs)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations

@@ -1,7 +1,14 @@
-"""Aggregate steps of the Executor (counterpart of the perfect-layout
-routes of hdk_tpu/exec/agg_exec.py): dense GROUP BY, the fused
-aggregate -> ORDER BY/LIMIT step, scalar aggregates, and the choice of
-the perfect layout from static key ranges or a device min/max probe."""
+"""Aggregate steps of the Executor (counterpart of the single-device
+routes of hdk_tpu/exec/agg_exec.py): GROUP BY on the dense (perfect-hash)
+or the sort-based route, the fused aggregate -> ORDER BY/LIMIT step, the
+identity pass over keys certified unique, and scalar aggregates.
+
+Route choice, as in the JAX package: a dense layout from static key
+ranges, else from a device min/max probe of the keys; without one, the
+sort route, whose group buffer has a cap from ``default_max_groups``, the
+key-range product and a sampled NDV estimate (Chao84).  A sort-route
+group count above the cap widens the buffer and runs again, unless
+``exec.allow_retry`` is off."""
 
 from __future__ import annotations
 
@@ -18,7 +25,23 @@ from . import ranges as rng
 from . import sort as srt
 from .codecache import chain_key
 from .common import ExecTable, _broadcast, _schema_sig
-from .masked import MaskedCol, combine_masks
+from .masked import MaskedCol, combine_masks, torch_dtype
+from .scalar import ExecError
+
+# aggregate kinds with a closed form over a single-row group (the
+# identity pass over certified-unique keys)
+_IDENTITY_KINDS = frozenset({
+    ir.AggKind.COUNT, ir.AggKind.SUM, ir.AggKind.AVG, ir.AggKind.MIN,
+    ir.AggKind.MAX, ir.AggKind.SINGLE_VALUE, ir.AggKind.SAMPLE,
+})
+
+# aggregate kinds the JAX package merges chunk by chunk when it streams a
+# scan through the device (fragment-streamed aggregation)
+_STREAMED_KINDS = frozenset({
+    ir.AggKind.COUNT, ir.AggKind.SUM, ir.AggKind.AVG, ir.AggKind.STDDEV_SAMP,
+    ir.AggKind.VAR_SAMP, ir.AggKind.MIN, ir.AggKind.MAX, ir.AggKind.SAMPLE,
+    ir.AggKind.SINGLE_VALUE, ir.AggKind.APPROX_COUNT_DISTINCT,
+})
 
 
 def _perfect_key_type(typ: t.Type) -> bool:
@@ -35,15 +58,75 @@ class AggExecMixin:
         if source.nrows == 0:
             return ExecTable.empty(node.fields, node.output_types,
                                    self.device)
-        layout = self._perfect_layout(node, source, chain, src_node)
+        out = self._agg_identity_table(node, source, chain, src_node)
+        if out is not None:
+            return out
+        cols, exists, n, nbuf = self._group(node, source, chain, src_node,
+                                            need_count=True)
+        # group-by output keys are distinct by construction: a downstream
+        # GROUP BY covering them is an identity pass
+        uniq = (frozenset(range(len(node.keys))),)
+        if n is None:  # dense route: the buffer and its existence mask
+            return ExecTable(list(node.fields), list(node.output_types),
+                             cols, nbuf, exists, unique_sets=uniq)
+        cols = [MaskedCol(c.data[:n], c.mask[:n] if c.mask is not None
+                          else None) for c in cols]
+        return ExecTable(list(node.fields), list(node.output_types), cols, n,
+                         unique_sets=uniq)
+
+    def _group(self, node: nd.Aggregate, source: ExecTable, chain, src_node,
+               need_count: bool):
+        """Group the source on the dense or the sort route: (columns,
+        exists, n, entries of the buffer).  On the sort route a group count
+        above the buffer cap widens the buffer and groups again.  ``n`` is
+        the group count read on the host (a sync): None on the dense route,
+        and on the sort route unless ``need_count`` or the buffer can
+        overflow (it cannot when it covers every row or the whole
+        key-range product)."""
         used = self._agg_used(node, chain, src_node)
-        self._refuse_fragment_stream(node, source, chain, src_node, used)
+        layout, key_ranges = self._layout_and_ranges(node, source, chain,
+                                                     src_node, used)
+        cap, prod = self._sort_cap(node, source, chain, src_node, layout,
+                                   key_ranges)
+        can_overflow = (cap < source.nrows and (prod is None or prod > cap))
+        read = layout is None and (need_count or can_overflow)
+        args = ([source.columns[i] for i in used], source.row_mask)
+        self._groupby_attempts = 0
+        while True:
+            self._groupby_attempts += 1
+            fn = self._group_step(node, source, chain, src_node, used,
+                                  layout, key_ranges, cap)
+            key_cols, agg_cols, exists, n_groups = fn(*args)
+            n = int(n_groups) if read else None  # host sync: group count
+            if n is None or n <= cap:
+                break
+            cap = self._widen(n, cap, source.nrows)
+        cols = list(key_cols) + list(agg_cols)
+        if layout is not None:
+            return cols, exists, None, layout.entry_count
+        self._groupby_cap = cap
+        return cols, exists, n, cap
+
+    def _widen(self, n: int, cap: int, nrows: int) -> int:
+        """The cap of the next attempt after ``n`` groups overflowed
+        ``cap``."""
+        if not self.config.exec.allow_retry:
+            raise ExecError(f"group count {n} exceeds buffer cap {cap} "
+                            f"(exec.allow_retry disabled)")
+        return min(nrows, n)
+
+    def _group_step(self, node: nd.Aggregate, source: ExecTable, chain,
+                    src_node, used, layout, key_ranges, cap: int):
+        """The cached step grouping the source: fn(sub_cols, row_mask) ->
+        (key_cols, agg_cols, exists, n_groups); n_groups is None on the
+        dense route."""
         nrows0 = source.nrows
         size = len(source.fields)
+        route = (f"layout={layout.mins}/{layout.sizes}" if layout is not None
+                 else f"sortcap={cap}/rng={key_ranges}")
         key = chain_key(_schema_sig(source), chain, node,
                         self._dict_generation_sig(chain, node)
-                        + f"layout={layout.mins}/{layout.sizes}u{used}"
-                        + f"/n{nrows0}")
+                        + f"{route}u{used}/n{nrows0}")
 
         def build():
             def fn(sub_cols, row_mask):
@@ -53,72 +136,97 @@ class AggExecMixin:
                 keys = [_broadcast(self.scalar.evaluate(k, resolve), nrows0)
                         for k in node.keys]
                 specs = self._build_specs(node, resolve, nrows0)
-                return gb.groupby_perfect(keys, layout, specs, rm)
+                if layout is not None:
+                    return (*gb.groupby_perfect(keys, layout, specs, rm),
+                            None)
+                return gb.groupby_sort(keys, specs, cap, row_valid=rm,
+                                       key_ranges=key_ranges)
 
             return fn
 
-        fn = self.code_cache.get_or_build(key, build)
-        key_cols, agg_cols, exists = fn(
-            [source.columns[i] for i in used], source.row_mask)
-        return ExecTable(list(node.fields), list(node.output_types),
-                         list(key_cols) + list(agg_cols),
-                         layout.entry_count, exists)
+        return self.code_cache.get_or_build(key, build)
 
     def _exec_fused_agg_sort(self, sort_node: nd.Sort, node: nd.Aggregate,
                              results) -> Optional[ExecTable]:
         """Aggregate -> Sort (+LIMIT window) as one step: group into the
-        dense buffer, order its rows with dead groups last, and emit a
-        validity window instead of a compaction."""
+        buffer, order its rows with dead groups last (a stable
+        lexicographic top-n: ties keep the lower group index first), and
+        emit a validity window instead of a compaction."""
         source, chain, src_node = self._resolve_chain(node.inputs[0], results)
         if source.nrows == 0:
             return None
-        layout = self._perfect_layout(node, source, chain, src_node)
-        used = self._agg_used(node, chain, src_node)
-        self._refuse_fragment_stream(node, source, chain, src_node, used)
-        nrows0 = source.nrows
-        size = len(source.fields)
+        ident = self._agg_identity_table(node, source, chain, src_node)
+        if ident is not None:
+            # the Sort runs over the (masked) identity table
+            results[node.id] = ident
+            return self._exec_sort(sort_node, results)
+        cols, exists, _n, nbuf = self._group(node, source, chain, src_node,
+                                             need_count=False)
         out_types = list(node.output_types)
         sf = sort_node.sort_fields
-        descs = [f.desc for f in sf]
-        nfs = [f.nulls_first for f in sf]
         limit, offset = sort_node.limit, sort_node.offset
-        nbuf = layout.entry_count
         topn = (offset + limit
                 if limit is not None and 0 < offset + limit < nbuf else nbuf)
-        key = chain_key(
-            _schema_sig(source), chain, node,
-            self._dict_generation_sig(chain, node)
-            + f"layout={layout.mins}/{layout.sizes}u{used}|fsort"
-            + f"{[(f.field_index, f.desc, f.nulls_first) for f in sf]}"
-            + f"/{limit}/{offset}/n{nrows0}")
-
-        def build():
-            def fn(sub_cols, row_mask):
-                resolve, rm = self._terminal_env(src_node, sub_cols, used,
-                                                 size, chain, row_mask,
-                                                 nrows0)
-                keys = [_broadcast(self.scalar.evaluate(k, resolve), nrows0)
-                        for k in node.keys]
-                specs = self._build_specs(node, resolve, nrows0)
-                kc, ac, exists = gb.groupby_perfect(keys, layout, specs, rm)
-                cols = list(kc) + list(ac)
-                scols = [self._sortable(cols[f.field_index],
-                                        out_types[f.field_index])
-                         for f in sf]
-                perm = srt.lex_topn(srt.sort_keys_int64(scols, descs, nfs),
-                                    topn, exists)
-                out = [MaskedCol(c.data[perm],
-                                 c.mask[perm] if c.mask is not None else None)
-                       for c in cols]
-                return out, _window(exists.sum(), topn, limit, offset)
-
-            return fn
-
-        fn = self.code_cache.get_or_build(key, build)
-        cols, window = fn([source.columns[i] for i in used], source.row_mask)
+        scols = [self._sortable(cols[f.field_index], out_types[f.field_index])
+                 for f in sf]
+        perm = srt.lex_topn(srt.sort_keys_int64(
+            scols, [f.desc for f in sf], [f.nulls_first for f in sf]),
+            topn, exists)
+        out = [MaskedCol(c.data[perm],
+                         c.mask[perm] if c.mask is not None else None)
+               for c in cols]
         return ExecTable(list(sort_node.fields), list(sort_node.output_types),
-                         cols, topn, window)
+                         out, topn, _window(exists.sum(), topn, limit, offset))
 
+    # -- the identity pass over certified-unique keys ----------------------
+    def _identity_applicable(self, node: nd.Aggregate, source: ExecTable,
+                             chain, src_node) -> bool:
+        """The keys cover a set of source columns certified unique, and
+        every aggregate has a closed single-row form."""
+        if chain or not node.keys or not source.unique_sets:
+            return False
+        if not all(isinstance(k, ir.ColumnRef) and k.node is src_node
+                   for k in node.keys):
+            return False
+        key_idx = {k.index for k in node.keys}
+        if not any(s <= key_idx for s in source.unique_sets):
+            return False
+        return all(a.kind in _IDENTITY_KINDS
+                   and getattr(a, "operand2", None) is None
+                   for a in node.aggs)
+
+    def _identity_cols(self, node: nd.Aggregate, resolve,
+                       nrows0: int) -> List[MaskedCol]:
+        """Output columns of the identity pass: keys pass through, each
+        aggregate takes its single-row value (COUNT(*) = 1, SUM x = x...)."""
+        cols = [_broadcast(self.scalar.evaluate(k, resolve), nrows0)
+                for k in node.keys]
+        for a, oty in zip(node.aggs, node.output_types[len(node.keys):]):
+            od = torch_dtype(oty.physical_dtype())
+            v = (None if a.operand is None else
+                 _broadcast(self.scalar.evaluate(a.operand, resolve), nrows0))
+            if a.kind == ir.AggKind.COUNT:
+                data = (torch.ones((nrows0,), dtype=od, device=self.device)
+                        if v is None or v.mask is None else v.mask.to(od))
+                cols.append(MaskedCol(data))
+            else:
+                cols.append(MaskedCol(v.data.to(od), v.mask))
+        return cols
+
+    def _agg_identity_table(self, node: nd.Aggregate, source: ExecTable,
+                            chain, src_node) -> Optional[ExecTable]:
+        """GROUP BY over certified-unique keys: every live row is its own
+        group, so grouping is an identity pass and the row mask rides
+        along uncompacted."""
+        if not self._identity_applicable(node, source, chain, src_node):
+            return None
+        cols = self._identity_cols(node, lambda ref: source.columns[ref.index],
+                                   source.nrows)
+        return ExecTable(list(node.fields), list(node.output_types), cols,
+                         source.nrows, source.row_mask,
+                         unique_sets=(frozenset(range(len(node.keys))),))
+
+    # ------------------------------------------------------------------
     def _agg_nogroup(self, node: nd.Aggregate, source: ExecTable,
                      chain, src_node) -> ExecTable:
         used = self._agg_used(node, chain, src_node)
@@ -165,6 +273,7 @@ class AggExecMixin:
 
     def _build_specs(self, node: nd.Aggregate, resolve,
                      nrows: int) -> List[gb.AggSpec]:
+        g = self.config.exec.group_by
         specs = []
         for agg in node.aggs:
             operand = None
@@ -175,16 +284,23 @@ class AggExecMixin:
             if getattr(agg, "operand2", None) is not None:
                 operand2 = _broadcast(
                     self.scalar.evaluate(agg.operand2, resolve), nrows)
-            specs.append(gb.AggSpec(agg.kind, operand, agg.type,
-                                    agg.distinct, operand2))
+            specs.append(gb.AggSpec(
+                agg.kind, operand, agg.type, agg.distinct, agg.arg1,
+                agg.interpolation, operand2, hll_p=g.hll_precision,
+                hll_budget=g.hll_register_budget, td_c=g.tdigest_centroids,
+                td_budget=g.tdigest_centroid_budget))
         return specs
 
     def _refuse_fragment_stream(self, node, source, chain, src_node,
                                 used) -> None:
-        """The JAX package streams a scan fragment by fragment when its
-        used columns exceed the scan budget, or when a watchdog time limit
-        is set; that route is not ported."""
+        """The JAX package streams a scan fragment by fragment through a
+        dense or scalar aggregate of mergeable kinds when its used columns
+        exceed the scan budget, or when a watchdog time limit is set; that
+        route is not ported."""
         if not isinstance(src_node, nd.Scan) or source.row_mask is not None:
+            return
+        if not all(a.kind in _STREAMED_KINDS and not a.distinct
+                   for a in node.aggs):
             return
         table = src_node.table
         if len(table.fragments) < 2 or table.nrows == 0:
@@ -200,73 +316,166 @@ class AggExecMixin:
                 "fragment-streamed aggregation (scan over the device budget "
                 "or a watchdog time limit) is not ported yet (ROADMAP A4)")
 
-    # ------------------------------------------------------------------
-    def _perfect_layout(self, node: nd.Aggregate, source: ExecTable, chain,
-                        src_node) -> gb.PerfectHashLayout:
-        """The dense layout from static key ranges, else from a device
-        min/max probe of the keys; raises where there is none."""
-        layout = None
-        if all(_perfect_key_type(k.type) for k in node.keys):
-            ranges = [rng.infer_range(k) for k in node.keys]
-            bounded = all(r is not None for r in ranges)
-            if bounded:
-                layout = gb.choose_perfect_layout(
-                    [k.type for k in node.keys], ranges, self._layout_limit)
-            # a layout refused for its size stays refused; unknown
-            # bounds are probed on the device
-            if layout is None and (not bounded or any(
-                    r[0] is None or r[1] is None for r in ranges)):
-                layout = self._probed_layout(node, source, chain, src_node)
-        if layout is None:
-            raise NotImplementedError(
-                "GROUP BY keys without a dense layout need the sort-based "
-                "group-by, which is not ported yet (ROADMAP A1)")
-        return layout
+    # -- layout, key ranges and the group cap ------------------------------
+    def _layout_and_ranges(self, node: nd.Aggregate, source: ExecTable,
+                           chain, src_node, used):
+        """(dense layout or None, key ranges or None).  Static ranges come
+        back even when the layout is refused for its size, so the sort
+        route can pack the keys; keys that stats cannot bound are probed
+        on the device.  A static layout over a scan the JAX package would
+        stream is refused (``_refuse_fragment_stream``)."""
+        if not all(_perfect_key_type(k.type) for k in node.keys):
+            return None, None
+        ranges = [rng.infer_range(k) for k in node.keys]
+        if all(r is not None for r in ranges):
+            layout = gb.choose_perfect_layout([k.type for k in node.keys],
+                                              ranges, self._layout_limit)
+            if layout is not None:
+                self._refuse_fragment_stream(node, source, chain, src_node,
+                                             used)
+            if all(lo is not None and hi is not None
+                   for lo, hi, _ in ranges):
+                return layout, tuple((int(lo), int(hi), bool(nul))
+                                     for lo, hi, nul in ranges)
+            if layout is not None:
+                return layout, None
+        return self._probed_layout(node, source, chain, src_node)
 
     @property
     def _layout_limit(self) -> int:
         return self.config.exec.group_by.perfect_hash_entries_limit
 
-    def _probed_layout(self, node: nd.Aggregate, source: ExecTable, chain,
-                       src_node) -> Optional[gb.PerfectHashLayout]:
-        """Key ranges from one device min/max pass (a host sync), cached
-        while the same input tensors are alive."""
-        used = self._used_columns(src_node, chain, list(node.keys))
-        key = chain_key(_schema_sig(source), chain, node,
-                        self._dict_generation_sig(chain, node)
-                        + f"rangeprobe/n{source.nrows}")
-        objs = [source.columns[i].data for i in used] + [source.row_mask]
+    def _cached(self, key: str, objs, compute):
+        """``compute()``, cached under ``key`` while the tensors ``objs``
+        (None allowed) are alive."""
         hit = self._probe_cache.get(key)
         if hit is not None and all(
                 (r() if r is not None else None) is o
                 for r, o in zip(hit[0], objs)):
             return hit[1]
-        resolve, rm = self._terminal_env(
-            src_node, [source.columns[i] for i in used], used,
-            len(source.fields), chain, source.row_mask, source.nrows)
-        bounds = []
-        for kx in node.keys:
-            v = _broadcast(self.scalar.evaluate(kx, resolve), source.nrows)
-            data = v.data.to(torch.int64)
-            live = combine_masks(v.mask, rm)
-            if live is not None:
-                big = torch.iinfo(torch.int64)
-                lo = torch.where(live, data, big.max).min()
-                hi = torch.where(live, data, big.min).max()
-            else:
-                lo, hi = data.min(), data.max()
-            bounds.append(torch.stack([lo, hi]))
-        ranges = []
-        for (lo_i, hi_i), k in zip(torch.stack(bounds).tolist(), node.keys):
-            if lo_i > hi_i:  # no live rows
-                lo_i, hi_i = 0, 0
-            ranges.append((int(lo_i), int(hi_i), k.type.nullable))
-        layout = gb.choose_perfect_layout([k.type for k in node.keys],
-                                          ranges, self._layout_limit)
+        value = compute()
         self._probe_cache[key] = (
-            tuple(None if o is None else weakref.ref(o) for o in objs),
-            layout)
-        return layout
+            tuple(None if o is None else weakref.ref(o) for o in objs), value)
+        return value
+
+    def _probed_layout(self, node: nd.Aggregate, source: ExecTable, chain,
+                       src_node):
+        """(layout, key ranges) from one device min/max pass over the keys
+        (a host sync)."""
+        used = self._used_columns(src_node, chain, list(node.keys))
+        key = chain_key(_schema_sig(source), chain, node,
+                        self._dict_generation_sig(chain, node)
+                        + f"rangeprobe/n{source.nrows}")
+
+        def probe():
+            resolve, rm = self._terminal_env(
+                src_node, [source.columns[i] for i in used], used,
+                len(source.fields), chain, source.row_mask, source.nrows)
+            bounds = []
+            for kx in node.keys:
+                v = _broadcast(self.scalar.evaluate(kx, resolve),
+                               source.nrows)
+                data = v.data.to(torch.int64)
+                live = combine_masks(v.mask, rm)
+                if live is not None:
+                    big = torch.iinfo(torch.int64)
+                    lo = torch.where(live, data, big.max).min()
+                    hi = torch.where(live, data, big.min).max()
+                else:
+                    lo, hi = data.min(), data.max()
+                bounds.append(torch.stack([lo, hi]))
+            ranges = []
+            for (lo_i, hi_i), k in zip(torch.stack(bounds).tolist(),
+                                       node.keys):
+                if lo_i > hi_i:  # no live rows
+                    lo_i, hi_i = 0, 0
+                ranges.append((int(lo_i), int(hi_i), k.type.nullable))
+            layout = gb.choose_perfect_layout([k.type for k in node.keys],
+                                              ranges, self._layout_limit)
+            return layout, tuple(ranges)
+
+        return self._cached(
+            key, [source.columns[i].data for i in used] + [source.row_mask],
+            probe)
+
+    def _sort_cap(self, node: nd.Aggregate, source: ExecTable, chain,
+                  src_node, layout, key_ranges):
+        """(group buffer cap of the sort route, key-range product or
+        None): the rows, ``default_max_groups``, the product of the key
+        ranges (+1 NULL slot each) and, for loosely bounded keys over
+        enough rows, three times the sampled NDV estimate."""
+        nrows = source.nrows
+        g = self.config.exec.group_by
+        cap = min(nrows, g.default_max_groups)
+        prod = None
+        if key_ranges is not None:
+            prod = 1
+            for lo, hi, _nul in key_ranges:
+                prod *= hi - lo + 2
+                if prod > cap:
+                    break
+            cap = min(cap, max(prod, 1))
+        self._ndv_estimate = None
+        if (layout is None and cap > max(1 << 20, nrows // 2)
+                and nrows >= g.ndv_sample_min_rows):
+            est = self._estimate_ndv_sample(node, source, chain, src_node)
+            if est is not None:
+                self._ndv_estimate = est
+                cap = min(cap, max(256, est * 3))
+        return cap, prod
+
+    def _estimate_ndv_sample(self, node: nd.Aggregate, source: ExecTable,
+                             chain, src_node) -> Optional[int]:
+        """Chao84 estimate of the number of distinct key tuples,
+        ``u + f1^2 / (2 f2)``, from a strided sample of
+        ``ndv_sample_size`` rows: the chain and the key expressions run
+        on the sample, and only their tuple counts reach the host.  A
+        tuple is the keys' values and null flags; it counts where the row
+        mask is set.  Cached while the input tensors are alive; None when
+        sampling is off."""
+        s_cfg = int(self.config.exec.group_by.ndv_sample_size)
+        nrows = source.nrows
+        if s_cfg <= 0 or nrows == 0:
+            return None
+        s = min(s_cfg, nrows)
+        stride = max(1, nrows // s)
+        used = self._used_columns(src_node, chain, list(node.keys))
+        key = chain_key(_schema_sig(source), chain, node,
+                        self._dict_generation_sig(chain, node)
+                        + f"ndvsample/u{used}/s{s}/st{stride}/n{nrows}")
+
+        def estimate():
+            samp = [MaskedCol(c.data[::stride][:s],
+                              c.mask[::stride][:s] if c.mask is not None
+                              else None)
+                    for c in (source.columns[i] for i in used)]
+            rm0 = (source.row_mask[::stride][:s]
+                   if source.row_mask is not None else None)
+            resolve, rmx = self._terminal_env(src_node, samp, used,
+                                              len(source.fields), chain,
+                                              rm0, s)
+            parts = []
+            for kx in node.keys:
+                c = _broadcast(self.scalar.evaluate(kx, resolve), s)
+                parts.append(gb._orderable_int64(c.data))
+                if c.mask is not None:
+                    parts.append(c.mask.to(torch.int64))
+            tuples = torch.stack(parts, dim=1)
+            if rmx is not None:
+                tuples = tuples[rmx]
+            if tuples.shape[0] == 0:
+                return None
+            _, counts = torch.unique(tuples, dim=0, return_counts=True)
+            u = counts.numel()
+            f1, f2 = torch.stack([(counts == 1).sum(),
+                                  (counts == 2).sum()]).tolist()
+            est = u + (f1 * f1) / (2.0 * max(f2, 1))
+            return int(min(max(est, u), nrows))
+
+        return self._cached(
+            key + "|est",
+            [source.columns[i].data for i in used] + [source.row_mask],
+            estimate)
 
 
 def _window(live: torch.Tensor, nbuf: int, limit: Optional[int],

@@ -21,7 +21,9 @@ class ExecTable:
     ``nrows`` is the buffer capacity; ``row_mask`` (optional) marks live
     rows, so filters and dense group buffers need no compaction until a
     consumer wants dense rows.  ``_live`` caches the host-synced live
-    count.
+    count.  ``unique_sets``: uniqueness certificates, each a frozenset of
+    column indices whose value tuple (NULL compared as a value) is
+    distinct across live rows; a group-by output certifies its keys.
     """
 
     fields: List[str]
@@ -30,6 +32,7 @@ class ExecTable:
     nrows: int
     row_mask: Optional[torch.Tensor] = None
     _live: Optional[int] = None
+    unique_sets: tuple = ()
 
     def live_count(self) -> int:
         if self.row_mask is None:
@@ -42,7 +45,9 @@ class ExecTable:
         """Dense copy with dead rows removed (one sync + gather)."""
         if self.row_mask is None:
             return self
-        return self.gather(nonzero_indices(self.row_mask, self.live_count()))
+        out = self.gather(nonzero_indices(self.row_mask, self.live_count()))
+        out.unique_sets = self.unique_sets  # a row subset stays distinct
+        return out
 
     def gather(self, idx: torch.Tensor) -> "ExecTable":
         cols = [MaskedCol(c.data[idx],

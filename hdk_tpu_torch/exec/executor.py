@@ -58,6 +58,11 @@ class Executor(AggExecMixin):
         # probed perfect layouts keyed by plan, valid while the probed
         # input tensors are alive
         self._probe_cache: Dict[str, tuple] = {}
+        # the last group-by's NDV estimate, attempts (widen-retry) and
+        # final sort-route buffer cap
+        self._ndv_estimate: Optional[int] = None
+        self._groupby_attempts = 0
+        self._groupby_cap = 0
 
     # ------------------------------------------------------------------
     def execute(self, dag: nd.QueryDag) -> ExecTable:

@@ -1,23 +1,34 @@
-"""Dense (perfect-hash) group-by and scalar aggregates (counterpart of
-the perfect-layout half of hdk_tpu/exec/groupby.py).
+"""Group-by and aggregates (counterpart of hdk_tpu/exec/groupby.py).
 
-``groupby_perfect`` computes a positional group id per row,
-``gid = sum((key - min) * stride)`` over the keys, with a trailing slot per
-nullable key, and reduces every aggregate slot into a dense buffer of
-``entry_count`` groups; ``nogroup_agg`` is the one-group case.  All
-sum-shaped slots of a query share one call of ``ops/onehot.seg_sums``,
-which runs the histogram kernels above ``_FEW_SEGMENTS`` segments.
+Two routes give every group a dense id in [0, n) and hand the same
+aggregate step (``_reduce_specs``) the rows with that id:
+
+  * ``groupby_perfect``: a positional id per row,
+    ``gid = sum((key - min) * stride)`` over integer keys with known
+    ranges, with a trailing slot per nullable key; ``n`` is the layout's
+    ``entry_count`` and the caller compacts.
+  * ``groupby_sort``: a stable sort of the keys (one packed composite
+    where the key ranges allow, ``try_pack_keys``), group ids from the
+    sorted-key boundaries, ``n`` a buffer cap; groups come in key order.
+
+``nogroup_agg`` is the one-group case.  All sum-shaped slots of a query
+share one call of ``ops/onehot.seg_sums``, which runs the histogram
+kernels above ``_FEW_SEGMENTS`` segments; on sorted ids each group adds
+only its own rows, in int64 or float64.
 
 Aggregate cells: COUNT(*) counts rows; COUNT(col) counts non-null;
 SUM/MIN/MAX/AVG skip nulls and give NULL for all-null groups; AVG is a
 (sum, count) pair finalized at the end; STDDEV/VAR use (sum, sumsq, count)
-and CORR five moments and a count.  Sort-based group-by (no perfect
-layout), DISTINCT aggregates, quantiles, sketches and TOP_K are not ported
-yet (ROADMAP A1).
+and CORR five moments and a count.  DISTINCT SUM/AVG and COUNT(DISTINCT)
+dedupe (group, value) pairs by a sort; QUANTILE sorts each group's values;
+APPROX_COUNT_DISTINCT and APPROX_QUANTILE build sketches
+(``ops/sketches.py``).  TOP_K/BOTTOM_K produce array columns, which the
+port does not have yet (ROADMAP A3).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -26,7 +37,8 @@ import torch
 
 from .. import types as t
 from ..ir.expr import AggKind
-from ..ops import onehot
+from ..ops import onehot, sketches
+from ..ops import sortops as so
 from .masked import MaskedCol, combine_masks, torch_dtype
 
 
@@ -38,7 +50,15 @@ class AggSpec:
     operand: Optional[MaskedCol]  # None for COUNT(*)
     out_type: t.Type
     distinct: bool = False
+    arg1: object = None  # quantile fraction
+    interpolation: str = "linear"
     operand2: Optional[MaskedCol] = None  # CORR's second argument
+    # sketch sizing; the effective values shrink with the group count to
+    # fit the budgets (ops/sketches.effective_*)
+    hll_p: int = 11
+    hll_budget: int = 1 << 24
+    td_c: int = 300
+    td_budget: int = 1 << 21
 
 
 @dataclass
@@ -108,10 +128,6 @@ def _seg_sum(vals: torch.Tensor, gid: torch.Tensor, n: int,
              is_ones: bool = False) -> torch.Tensor:
     """Segment sum of a 1-D column into int64 (integers, bools) or
     float64; operands go at their native width."""
-    if vals.dim() != 1:
-        raise NotImplementedError(
-            "multi-column aggregate slots come with sketches and TOP_K "
-            "(ROADMAP A1)")
     if n <= _FEW_SEGMENTS:
         if vals.dtype == torch.bool:
             return torch.stack([((gid == g) & vals).sum() for g in range(n)])
@@ -161,6 +177,17 @@ class AggResult:
             var = torch.clamp_min(var, 0.0)
             out = torch.sqrt(var) if k == AggKind.STDDEV_SAMP else var
             return MaskedCol(out.to(out_dt), c > 1)
+        if k == AggKind.COUNT_DISTINCT:
+            return MaskedCol(self.slots[0].to(out_dt))
+        if k == AggKind.APPROX_COUNT_DISTINCT:
+            return MaskedCol(sketches.hll_estimate(self.slots[0]).to(out_dt))
+        if k == AggKind.QUANTILE:
+            data, nonnull = self.slots
+            return MaskedCol(data.to(out_dt), nonnull > 0)
+        if k == AggKind.APPROX_QUANTILE:
+            means, weights = self.slots
+            est = sketches.tdigest_quantile(means, weights, float(spec.arg1))
+            return MaskedCol(est.to(out_dt), weights.sum(dim=1) > 0)
         if k == AggKind.CORR:
             # Pearson r from the five moment slots
             sx, sy, sxy, sxx, syy, c = self.slots
@@ -176,26 +203,38 @@ class AggResult:
 
 
 def _unsupported(spec: AggSpec) -> None:
-    if spec.distinct or spec.kind not in _PORTED_KINDS:
+    if spec.kind not in _PORTED_KINDS:
         raise NotImplementedError(
-            f"aggregate {spec.kind.name}{' DISTINCT' if spec.distinct else ''}"
-            " is not ported yet (ROADMAP A1)")
+            f"aggregate {spec.kind.name} gives an array column, which is "
+            "not ported yet (ROADMAP A3)")
 
 
 _PORTED_KINDS = frozenset({
     AggKind.COUNT, AggKind.SUM, AggKind.AVG, AggKind.MIN, AggKind.MAX,
     AggKind.STDDEV_SAMP, AggKind.VAR_SAMP, AggKind.CORR, AggKind.SAMPLE,
-    AggKind.SINGLE_VALUE,
+    AggKind.SINGLE_VALUE, AggKind.COUNT_DISTINCT,
+    AggKind.APPROX_COUNT_DISTINCT, AggKind.QUANTILE,
+    AggKind.APPROX_QUANTILE,
 })
 
 
-def _sum_plan(spec: AggSpec, ones: torch.Tensor):
+def _sum_plan(spec: AggSpec, gid: torch.Tensor, num: int,
+              ones: torch.Tensor):
     """(columns_to_segment_sum, resolve) for sum-shaped aggregates, or
-    None for kinds with their own reduction (MIN/MAX, CORR...).  The
-    columns of every spec of a group-by are summed in one ``seg_sums``
-    call."""
+    None for kinds with their own reduction (MIN/MAX, CORR, COUNT
+    DISTINCT, sketches...).  The columns of every spec of a group-by are
+    summed in one ``seg_sums`` call."""
     k = spec.kind
     v = spec.operand
+    if spec.distinct and k in (AggKind.SUM, AggKind.AVG):
+        first = _distinct_first_mask(v, gid, num)
+        acc = torch.where(first, v.fill(0), 0)
+        if k == AggKind.SUM:
+            return [acc, first], lambda r: AggResult([r[0], r[1]])
+        return [acc, first], lambda r: AggResult(
+            [r[0].to(torch.float64), r[1]])
+    if spec.distinct:
+        return None
     if k == AggKind.COUNT:
         if v is None or v.mask is None:
             return [ones], lambda r: AggResult([r[0]])
@@ -238,39 +277,36 @@ def _seg_sum_many(cols: Sequence[torch.Tensor], gid: torch.Tensor, num: int,
 
 
 def _agg_slots(spec: AggSpec, gid: torch.Tensor, n: int) -> AggResult:
-    """Raw slot buffers of one aggregate over assigned group ids; rows
-    that do not take part must already map to a discard segment >= n."""
-    _unsupported(spec)
+    """Raw slot buffers of an aggregate ``_sum_plan`` declines (MIN/MAX,
+    CORR, COUNT DISTINCT, quantiles, sketches) over assigned group ids;
+    rows that do not take part must already map to a discard segment
+    >= n."""
     k = spec.kind
     num = n + 1  # one discard segment at the end
-
-    def ones_like_rows():
-        return torch.ones(gid.shape, dtype=torch.bool, device=gid.device)
-
-    if k == AggKind.COUNT and spec.operand is None:
-        return AggResult([_seg_sum(ones_like_rows(), gid, num,
-                                   is_ones=True)[:n]])
     v = spec.operand
     if v is None:
         raise ValueError(f"{k} requires an operand")
     valid = v.mask
-    nonnull = ones_like_rows() if valid is None else valid
-    if k == AggKind.COUNT:
-        return AggResult([_seg_sum(nonnull, gid, num,
-                                   is_ones=valid is None)[:n]])
+    if k == AggKind.CORR:
+        return AggResult(_corr_slots(spec, lambda x: _seg_sum(x, gid,
+                                                              num)[:n]))
+    if k == AggKind.COUNT_DISTINCT:
+        return AggResult([_count_distinct(v, gid, n, num)])
+    if k == AggKind.APPROX_COUNT_DISTINCT:
+        p = sketches.effective_hll_p(spec.hll_p, n, spec.hll_budget)
+        return AggResult([sketches.hll_registers(v.data, valid, gid, n, p)])
+    if k == AggKind.APPROX_QUANTILE:
+        c = sketches.effective_td_c(spec.td_c, n, spec.td_budget)
+        return AggResult(list(sketches.tdigest_build(v.data, valid, gid,
+                                                     n, c)))
+    nonnull = (torch.ones(gid.shape, dtype=torch.bool, device=gid.device)
+               if valid is None else valid)
     nonnull_per_group = _seg_sum(nonnull, gid, num,
                                  is_ones=valid is None)[:n]
-    if k in (AggKind.SUM, AggKind.AVG, AggKind.STDDEV_SAMP,
-             AggKind.VAR_SAMP):
-        acc = v.fill(0)  # native width; the sums widen
-        s = _seg_sum(acc, gid, num)[:n]
-        if k == AggKind.SUM:
-            return AggResult([s, nonnull_per_group])
-        if k == AggKind.AVG:
-            return AggResult([s.to(torch.float64), nonnull_per_group])
-        sq = _seg_sum((acc.to(_acc_dtype(acc.dtype)) ** 2).to(torch.float64),
-                      gid, num)[:n]
-        return AggResult([s.to(torch.float64), sq, nonnull_per_group])
+    if k == AggKind.QUANTILE:
+        return AggResult([_group_quantile(v, gid, n, num, float(spec.arg1),
+                                          spec.interpolation),
+                          nonnull_per_group])
     if k in (AggKind.MIN, AggKind.MAX, AggKind.SAMPLE,
              AggKind.SINGLE_VALUE):
         is_min = k != AggKind.MAX
@@ -279,9 +315,6 @@ def _agg_slots(spec: AggSpec, gid: torch.Tensor, n: int) -> AggResult:
         m = _seg_extreme(vals, gid, num, is_min)[:n]
         return AggResult([torch.where(nonnull_per_group > 0, m, ident),
                           nonnull_per_group])
-    if k == AggKind.CORR:
-        return AggResult(_corr_slots(spec, lambda x: _seg_sum(x, gid,
-                                                              num)[:n]))
     raise NotImplementedError(f"aggregate {k}")
 
 
@@ -303,6 +336,63 @@ def _corr_slots(spec: AggSpec, reduce_fn):
         cnt = torch.ones(xf.shape, dtype=torch.int64, device=xf.device)
     return [reduce_fn(xf), reduce_fn(yf), reduce_fn(xf * yf),
             reduce_fn(xf * xf), reduce_fn(yf * yf), reduce_fn(cnt)]
+
+
+def _sorted_pairs(v: MaskedCol, gid: torch.Tensor, num: int, vkey):
+    """Rows sorted by (group, value key), NULL values moved to the
+    discard segment ``num - 1``: (permutation, sorted gids, sorted
+    keys)."""
+    key_g = gid if v.mask is None else torch.where(v.mask, gid, num - 1)
+    perm = so.lexsort([key_g, vkey])
+    return perm, key_g[perm], vkey[perm]
+
+
+def _distinct_first_mask(v: MaskedCol, gid: torch.Tensor,
+                         num: int) -> torch.Tensor:
+    """Per-row flag in row order: True for the first occurrence of each
+    distinct non-null (group, value) pair."""
+    perm, sg, sv = _sorted_pairs(v, gid, num, _orderable_int64(v.data))
+    first = so.changed(sg) | so.changed(sv)
+    if v.mask is not None:
+        first = first & v.mask[perm]
+    out = torch.zeros(gid.shape, dtype=torch.bool, device=gid.device)
+    out[perm] = first
+    return out
+
+
+def _count_distinct(v: MaskedCol, gid: torch.Tensor, n: int,
+                    num: int) -> torch.Tensor:
+    """Exact COUNT(DISTINCT x) per group: sort (group, value) pairs and
+    count the starts of their runs."""
+    _perm, sg, sv = _sorted_pairs(v, gid, num, _orderable_int64(v.data))
+    return _seg_sum(so.changed(sg) | so.changed(sv), sg, num)[:n]
+
+
+def _group_quantile(v: MaskedCol, gid: torch.Tensor, n: int, num: int,
+                    q: float, interpolation: str) -> torch.Tensor:
+    """Exact per-group quantile of the non-null values: sort (group,
+    value) and read the values at the quantile's position in each
+    group's run ("lower", "higher" or "linear" between them)."""
+    fvals = v.data.to(torch.float64)
+    perm, sg, _ = _sorted_pairs(v, gid, num, _orderable_int64(fvals))
+    sv = fvals[perm]
+    total = sv.shape[0]
+    if total == 0:
+        return torch.zeros((n,), dtype=torch.float64, device=gid.device)
+    counts = _seg_sum(torch.ones(sg.shape, dtype=torch.bool,
+                                 device=sg.device), sg, num, is_ones=True)
+    start = (torch.cumsum(counts, 0) - counts)[:n]
+    cnt = counts[:n]
+    pos = q * torch.clamp(cnt - 1, min=0).to(torch.float64)
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.ceil(pos).to(torch.int64)
+    lo_v = sv[torch.clamp(start + lo, 0, total - 1)]
+    hi_v = sv[torch.clamp(start + hi, 0, total - 1)]
+    if interpolation == "lower":
+        return lo_v
+    if interpolation == "higher":
+        return hi_v
+    return lo_v + (hi_v - lo_v) * (pos - lo.to(torch.float64))
 
 
 def _orderable_int64(data: torch.Tensor) -> torch.Tensor:
@@ -331,12 +421,9 @@ def nogroup_agg(specs: Sequence[AggSpec], nrows: int,
     gid = (torch.zeros((nrows,), dtype=torch.int32, device=device)
            if row_mask is None
            else torch.where(row_mask, 0, 1).to(torch.int32))
-    out = []
-    for spec in specs:
-        col = _agg_slots(spec, gid, 1).finalize(spec)
-        out.append(MaskedCol(col.data[0],
-                             col.mask[0] if col.mask is not None else None))
-    return out
+    agg_cols, _exists = _reduce_specs(specs, gid, 1)
+    return [MaskedCol(c.data[0], c.mask[0] if c.mask is not None else None)
+            for c in agg_cols]
 
 
 def perfect_gid(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
@@ -371,16 +458,23 @@ def groupby_perfect(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
     Returns (key_columns, agg_columns, exists), all with
     ``layout.entry_count`` entries; ``exists`` marks observed groups and
     the caller compacts."""
+    gid, _ = perfect_gid(keys, layout, row_mask)
+    agg_cols, exists = _reduce_specs(specs, gid, layout.entry_count)
+    return _perfect_key_columns(keys, layout), agg_cols, exists
+
+
+def _reduce_specs(specs: Sequence[AggSpec], gid: torch.Tensor, n: int
+                  ) -> Tuple[List[MaskedCol], torch.Tensor]:
+    """(finalized aggregate columns, exists) over rows with dense group
+    ids in [0, n); rows with gid n drop out.  One seg_sums call takes
+    exists and every sum-shaped slot."""
     for spec in specs:
         _unsupported(spec)
-    n = layout.entry_count
-    gid, _ = perfect_gid(keys, layout, row_mask)
-    # one seg_sums call for exists and every sum-shaped slot
     ones = torch.ones(gid.shape, dtype=torch.bool, device=gid.device)
     batch_cols: List[torch.Tensor] = [ones]
     plans = []
     for spec in specs:
-        plan = _sum_plan(spec, ones)
+        plan = _sum_plan(spec, gid, n + 1, ones)
         if plan is not None:
             cols_i, resolve = plan
             idxs = list(range(len(batch_cols), len(batch_cols) + len(cols_i)))
@@ -389,7 +483,6 @@ def groupby_perfect(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
         else:
             plans.append(None)
     sums = _seg_sum_many(batch_cols, gid, n + 1, ones_obj=ones)
-    exists = sums[0][:n] > 0
     agg_cols = []
     for spec, plan in zip(specs, plans):
         if plan is None:
@@ -398,7 +491,7 @@ def groupby_perfect(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
             idxs, resolve = plan
             res = resolve([sums[i][:n] for i in idxs])
         agg_cols.append(res.finalize(spec))
-    return _perfect_key_columns(keys, layout), agg_cols, exists
+    return agg_cols, sums[0][:n] > 0
 
 
 def _perfect_key_columns(keys: Sequence[MaskedCol],
@@ -419,3 +512,154 @@ def _perfect_key_columns(keys: Sequence[MaskedCol],
         key_cols.append(MaskedCol(
             data, idx != (size - 1) if key.mask is not None else None))
     return key_cols
+
+
+def try_pack_keys(keys: Sequence[MaskedCol],
+                  key_ranges: Optional[Sequence[Tuple[int, int, bool]]]
+                  ) -> Optional[Tuple[torch.Tensor, List[Tuple[int, int, int]]]]:
+    """One int64 composite of several keys when their ranges fit in 62
+    bits: each key takes ``hi - lo + 2`` slots (the last for NULL, so
+    NULLs sort last), first key outermost.  Returns (composite, layout)
+    with layout[i] = (lo, size, stride) per key, which ``unpack_keys``
+    inverts; None without ranges or when they do not fit."""
+    if key_ranges is None or len(key_ranges) != len(keys):
+        return None
+    total = 1
+    sizes = []
+    for lo, hi, _nul in key_ranges:
+        size = int(hi) - int(lo) + 2
+        if size <= 0:
+            return None
+        sizes.append(size)
+        total *= size
+        if total >= (1 << 62):
+            return None
+    composite = torch.zeros(keys[0].data.shape, dtype=torch.int64,
+                            device=keys[0].data.device)
+    strides = []
+    stride = 1
+    for key, (lo, _hi, _n), size in zip(reversed(list(keys)),
+                                        reversed(list(key_ranges)),
+                                        reversed(sizes)):
+        idx = key.data.to(torch.int64) - int(lo)
+        if key.mask is not None:
+            idx = torch.where(key.mask, idx, size - 1)
+        composite = composite + idx * stride
+        strides.append(stride)
+        stride *= size
+    strides.reverse()
+    layout = [(int(lo), size, st)
+              for (lo, _hi, _n), size, st in zip(key_ranges, sizes, strides)]
+    return composite, layout
+
+
+def unpack_keys(comp: torch.Tensor, keys: Sequence[MaskedCol],
+                layout: List[Tuple[int, int, int]]) -> List[MaskedCol]:
+    """Key columns from packed composite values (``try_pack_keys``)."""
+    comp = comp.to(torch.int64)
+    total = max(st * size for _lo, size, st in layout)
+    out: List[MaskedCol] = []
+    for key, (lo, size, st) in zip(keys, layout):
+        idx = torch.div(comp, st, rounding_mode="floor") if st != 1 else comp
+        if st * size != total:  # the outermost key needs no modulo
+            idx = idx % size
+        out.append(MaskedCol((idx + lo).to(key.data.dtype),
+                             (idx != size - 1) if key.mask is not None
+                             else None))
+    return out
+
+
+def groupby_sort(keys: Sequence[MaskedCol], specs: Sequence[AggSpec],
+                 entry_cap: int, row_valid: Optional[torch.Tensor] = None,
+                 key_ranges: Optional[Sequence[Tuple[int, int, bool]]] = None
+                 ) -> Tuple[List[MaskedCol], List[MaskedCol], torch.Tensor,
+                            torch.Tensor]:
+    """Sort-based group-by for keys without a dense layout.
+
+    The rows sort stably on one packed composite where ``key_ranges``
+    allow (int32 when its range fits, the half of the radix-sort bytes),
+    else lexicographically on the orderable keys with a null flag before
+    each nullable key.  Rows where ``row_valid`` is False sort past the
+    live ones.  Group ids come from the sorted-key boundaries and are
+    clamped at ``entry_cap - 1`` (the caller widens and retries when
+    ``n_groups`` exceeds the cap); dead rows take the discard id
+    ``entry_cap``.  The aggregates are ``_reduce_specs`` over the sorted
+    ids and the operands gathered into sorted order, so each group sums
+    its own rows.  Key values come from the sorted composite at each
+    group's first row (packed keys), or from the source row there.
+
+    Returns (key_cols, agg_cols, exists, n_groups) with buffers of
+    ``entry_cap`` entries: the first ``n_groups`` (a 0-d tensor) are the
+    groups in composite or lexicographic key order, NULL keys last."""
+    nrows = keys[0].data.shape[0]
+    packed = try_pack_keys(keys, key_ranges)
+    if packed is not None:
+        composite, pack_layout = packed
+        if max(st * size for _lo, size, st in pack_layout) < (1 << 31) - 1:
+            sort_key = composite.to(torch.int32)
+            sentinel = torch.iinfo(torch.int32).max
+        else:
+            sort_key = composite
+            sentinel = torch.iinfo(torch.int64).max
+        if row_valid is not None:
+            sort_key = torch.where(row_valid, sort_key, sentinel)
+        skeys = [sort_key]
+    else:
+        skeys = []
+        if row_valid is not None:  # live rows first
+            skeys.append((~row_valid).to(torch.uint8))
+        for key in keys:
+            kv = _orderable_int64(key.data)
+            if key.mask is not None:  # NULLs last, as one group
+                skeys.append((~key.mask).to(torch.uint8))
+                kv = torch.where(key.mask, kv, 0)
+            skeys.append(kv)
+    pay = so.PayloadSet()
+    spec_slots = [[None if col is None
+                   else (pay.add(col.data), pay.add(col.mask))
+                   for col in (spec.operand, spec.operand2)]
+                  for spec in specs]
+    sorted_keys, sorted_pay, perm = so.sort_with_payload(skeys, pay.arrays)
+
+    boundary = so.changed(sorted_keys[0])
+    for sk in sorted_keys[1:]:
+        boundary = boundary | so.changed(sk)
+    if row_valid is None:
+        valid_sorted = None
+    elif packed is not None:
+        valid_sorted = sorted_keys[0] != sentinel
+    else:
+        valid_sorted = sorted_keys[0] == 0
+    gid_u = torch.cumsum(boundary, 0, dtype=torch.int32) - 1
+    total_b = gid_u[-1] + 1
+    n_groups = (total_b if valid_sorted is None
+                else torch.where(valid_sorted, gid_u + 1, 0).max())
+    gid_sorted = torch.clamp(gid_u, max=entry_cap - 1)  # overflow guard
+    if valid_sorted is not None:
+        gid_sorted = torch.where(valid_sorted, gid_sorted, entry_cap)
+
+    def slot_col(slots) -> Optional[MaskedCol]:
+        if slots is None:
+            return None
+        di, mi = slots
+        return MaskedCol(sorted_pay[di],
+                         sorted_pay[mi] if mi is not None else None)
+
+    sspecs = [dataclasses.replace(spec, operand=slot_col(s[0]),
+                                  operand2=slot_col(s[1]))
+              for spec, s in zip(specs, spec_slots)]
+    agg_cols, exists = _reduce_specs(sspecs, gid_sorted, entry_cap)
+
+    # each group's first sorted row: the first row whose id reaches it
+    # (nrows for the ids past the last group)
+    starts = torch.searchsorted(gid_u, torch.arange(
+        entry_cap, dtype=gid_u.dtype, device=gid_u.device))
+    first_row = torch.clamp(starts, max=nrows - 1)
+    if packed is not None:
+        key_cols = unpack_keys(sorted_keys[0][first_row], keys, pack_layout)
+    else:
+        rep = perm[first_row]
+        key_cols = [MaskedCol(key.data[rep],
+                              key.mask[rep] if key.mask is not None else None)
+                    for key in keys]
+    return key_cols, agg_cols, exists, n_groups

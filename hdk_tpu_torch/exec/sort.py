@@ -1,7 +1,8 @@
 """ORDER BY / LIMIT (counterpart of hdk_tpu/exec/sort.py).
 
-Every ordering is a stable lexicographic sort: repeated stable
-``torch.sort`` from the last key to the first, so ties keep row order.
+Every ordering is a stable lexicographic sort (``ops/sortops.lexsort``:
+repeated stable ``torch.sort`` from the last key to the first), so ties
+keep row order.
 That also makes top-n exact and row-for-row equal to the JAX package,
 whose ``lax.top_k`` puts the lower index first on ties (``torch.topk``
 promises no tie order on the card).  Keys are int64 views of the values
@@ -16,19 +17,9 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..ops.sortops import lexsort
 from .groupby import _orderable_int64
 from .masked import MaskedCol
-
-
-def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Stable permutation ordering rows by ``keys[0]``, then ``keys[1]``,
-    ..., then row id."""
-    n = keys[0].shape[0]
-    perm = torch.arange(n, dtype=torch.int64, device=keys[0].device)
-    for k in reversed(list(keys)):
-        _, order = torch.sort(k[perm], stable=True)
-        perm = perm[order]
-    return perm
 
 
 def sort_keys_int64(cols: Sequence[MaskedCol], descs: Sequence[bool],

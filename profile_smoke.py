@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the sort-route queries of chip_smoke.py.
+
+    python3 profile_smoke.py [--out FILE.json] [--top N] [--scale F]
+                             [--device cuda|cpu]
+
+Runs HN1 and HN2 (high-NDV group-by, 100M rows) and holistic Q1-Q3 (10M
+rows) on the data and seeds of chip_smoke.py's phases 5-6: two warm runs
+each, then one run under ``torch.profiler``.  Per query it prints the
+host wall time of the profiled run, the device busy time (the union of
+the kernels' intervals), the idle share ``1 - busy / wall``, and the top
+kernels and operators by device time; ``--out`` writes the same as JSON.
+``--scale`` shrinks the row and key counts (a rehearsal on the CPU:
+``--device cpu --scale 0.01``, where no kernel is traced).  Prints the
+card's name and power limit first; imports neither jax nor pandas.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import chip_smoke as cs  # noqa: E402
+
+
+def _device_us(ev) -> float:
+    """An operator's device time (the attribute's name varies by torch
+    version)."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(ev, name):
+            return float(getattr(ev, name))
+    return 0.0
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def profile_query(label: str, run, top: int) -> dict:
+    """Two warm runs, then one profiled run of ``run``."""
+    for _ in range(2):
+        run().block()
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run().block()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    intervals = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        s, e = ev.time_range.start, ev.time_range.end
+        intervals.append((s, e))
+        rec = kernels.setdefault(ev.name, [0.0, 0])
+        rec[0] += (e - s) / 1e3
+        rec[1] += 1
+    # None where no device was traced (a run on the CPU)
+    busy_ms = _busy_us(intervals) / 1e3 if intervals else None
+    ops = sorted(((ev.key, _device_us(ev) / 1e3, ev.count)
+                  for ev in prof.key_averages()
+                  if ev.key.startswith("aten::") and _device_us(ev) > 0),
+                 key=lambda r: -r[1])[:top]
+    kern = sorted(((name, ms, n) for name, (ms, n) in kernels.items()),
+                  key=lambda r: -r[1])[:top]
+    idle = None if busy_ms is None else 1.0 - busy_ms / wall_ms
+    print(f"{label}: wall {wall_ms!r} ms, "
+          + ("no device traced" if busy_ms is None else
+             f"device busy {busy_ms!r} ms, idle share {idle!r}"),
+          flush=True)
+    for name, ms, n in kern:
+        print(f"  kernel {ms:9.3f} ms x {n:3d}  {name[:110]}")
+    for name, ms, n in ops:
+        print(f"  op     {ms:9.3f} ms x {n:3d}  {name}")
+    return {"query": label, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": idle,
+            "kernels": [{"name": k, "ms": ms, "count": n}
+                        for k, ms, n in kern],
+            "ops": [{"name": k, "ms": ms, "count": n} for k, ms, n in ops]}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="JSON file to write")
+    ap.add_argument("--top", type=int, default=12,
+                    help="kernels and operators listed per query")
+    ap.add_argument("--scale", type=float, default=1.0,
+                    help="fraction of chip_smoke.py's rows and keys")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args()
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            cs.fail("CUDA is not available: profiling needs one CUDA card")
+        print(cs.gpu_line(), flush=True)
+    import hdk_tpu_torch
+
+    hdk = hdk_tpu_torch.HDK(device=args.device)
+    ndv_rows = int(cs.HIGH_NDV_ROWS * args.scale)
+    ndv_keys = int(cs.HIGH_NDV_KEYS * args.scale)
+    hol_rows = int(cs.HOLISTIC_ROWS * args.scale)
+    results = []
+
+    ht = hdk.import_pydict(cs.gen_high_ndv(ndv_rows, ndv_keys), name="ndv_t")
+    results.append(profile_query(
+        f"HN1 ({ndv_rows} rows)",
+        lambda: ht.agg("k", "count", "sum(v)").run(), args.top))
+    results.append(profile_query(
+        f"HN2 ({ndv_rows} rows)",
+        lambda: ht.agg("k", "count").sort(("count", "desc"),
+                                          limit=100).run(), args.top))
+    hdk.drop_table("ndv_t")
+
+    hdk.import_pydict(cs.gen_holistic(hol_rows), name="h")
+    for i, sql in enumerate((cs.HOLISTIC_Q1, cs.HOLISTIC_Q2,
+                             cs.HOLISTIC_Q3), 1):
+        results.append(profile_query(f"holistic Q{i} ({hol_rows} rows)",
+                                     lambda: hdk.sql(sql), args.top))
+    hdk.drop_table("h")
+    cs.check("jax" not in sys.modules, "jax was imported")
+    cs.check("pandas" not in sys.modules, "pandas was imported")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

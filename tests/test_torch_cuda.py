@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain version, in both
-the shared-memory and the global-atomic mode, and the main path on a CUDA
-session against the same session on the CPU.  Skips where there is no
-card.  On the card, without jax:
+the shared-memory and the global-atomic mode and over the sorted group
+ids of the sort-based group-by, and the main path and the sort route on
+a CUDA session against the same session on the CPU.  Skips where there
+is no card.  On the card, without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -12,6 +13,7 @@ import torch
 
 import hdk_tpu_torch
 from hdk_tpu_torch.kernels import hist
+from hdk_tpu_torch.ops import onehot
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +94,68 @@ def test_main_path_on_the_card(cuda, monkeypatch):
             np.testing.assert_allclose(gpu[name], cpu[name], rtol=1e-9)
         else:
             assert np.array_equal(gpu[name], cpu[name]), name
+
+
+# the sort route's sorted dense ids, at entry counts above the dense
+# layout's limit (2^22) up to ~2^25
+@pytest.mark.parametrize("n_entries", [(1 << 22) + 1, (1 << 25) + 1])
+def test_seg_sums_over_sorted_gid(cuda, n_entries):
+    gen = torch.Generator(device=cuda).manual_seed(n_entries)
+    n = 40_000_000
+    gid = torch.sort(torch.randint(0, n_entries, (n,), device=cuda,
+                                   generator=gen, dtype=torch.int32)).values
+    cols = [torch.ones((n,), dtype=torch.bool, device=cuda),
+            torch.rand((n,), device=cuda, generator=gen) < 0.7,
+            torch.randint(-2**62, 2**62, (n,), device=cuda, generator=gen,
+                          dtype=torch.int64),
+            torch.randint(-128, 128, (n,), device=cuda, generator=gen,
+                          dtype=torch.int8),
+            torch.rand((n,), device=cuda, generator=gen,
+                       dtype=torch.float64) * 1e4]
+    before = hist.launches()
+    got = onehot.seg_sums(cols, gid, n_entries, ones_ids=[0])
+    after = hist.launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        "count_hist": 1, "groupby_sums2": 1, "seg_sums_exact": 2,
+        "groupby_sums": 1}
+    assert torch.equal(got[0], hist.count_hist_ref(gid, n_entries))
+    assert torch.equal(got[1], hist.groupby_sums2_ref(
+        gid, cols[1][:, None], n_entries)[:, 0])
+    for i in (2, 3):
+        assert torch.equal(got[i], hist.seg_sums_exact_ref(
+            gid, cols[i][:, None], n_entries)[0])
+    torch.testing.assert_close(
+        got[4], hist.groupby_sums_ref(gid, cols[4][:, None], n_entries)[:, 0],
+        rtol=1e-10, atol=0)
+
+
+def test_sort_route_on_the_card(cuda, monkeypatch):
+    rng = np.random.default_rng(8)
+    n = 300_000
+    data = {"k": rng.integers(0, 10**9, n) * 8,
+            "g": rng.integers(0, 500, n),
+            "x": np.ma.MaskedArray(rng.integers(-10**6, 10**6, n),
+                                   rng.random(n) < 0.1),
+            "y": np.round(rng.normal(50.0, 20.0, n) * 8) / 8}
+    sqls = ["SELECT k, COUNT(*), SUM(x), AVG(y), STDDEV_SAMP(y), MIN(y) "
+            "FROM t GROUP BY k ORDER BY k",
+            "SELECT g, COUNT(DISTINCT x), SUM(DISTINCT x), MEDIAN(y), "
+            "APPROX_COUNT_DISTINCT(x), APPROX_QUANTILE(y, 0.9) FROM t "
+            "GROUP BY g ORDER BY g",
+            "SELECT k, COUNT(*) AS c FROM t GROUP BY k ORDER BY c DESC "
+            "LIMIT 50"]
+    out = []
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            _refuse_plain_versions(monkeypatch)
+        hdk = hdk_tpu_torch.HDK(device=device)
+        hdk.import_pydict(data, name="t")
+        hist.reset_launches()
+        out.append([hdk.sql(q).to_numpy() for q in sqls])
+    assert all(v > 0 for v in hist.launches().values())
+    for cpu, gpu in zip(*out):
+        for name in cpu:
+            if cpu[name].dtype.kind == "f":
+                np.testing.assert_allclose(gpu[name], cpu[name], rtol=1e-9)
+            else:
+                assert np.array_equal(gpu[name], cpu[name]), name

@@ -186,8 +186,11 @@ def test_nogroup_agg(masked):
 
 
 def test_unported_aggregates_raise():
+    # TOP_K/BOTTOM_K give array columns, which come with ROADMAP A3
     col = _tcol(np.arange(10))
     k = hdk_tpu_torch.ir.expr.AggKind
-    spec = tgb.AggSpec(k.COUNT_DISTINCT, col, hdk_tpu_torch.types.int64(False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgb.nogroup_agg([spec], 10, None, "cpu")
+    for kind in (k.TOP_K, k.BOTTOM_K):
+        spec = tgb.AggSpec(kind, col, hdk_tpu_torch.types.int64(False),
+                           arg1=3)
+        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+            tgb.nogroup_agg([spec], 10, None, "cpu")

@@ -1,6 +1,8 @@
 """hdk_tpu_torch never imports jax: in a fresh interpreter, importing the
 port and running a query loads no jax module, and nothing of hdk_tpu's
-directories except the shared host modules it names."""
+directories except the shared host modules it names.  The sort and sketch
+modules are the port's own files, and importing them and running the
+sort route on numpy data loads neither jax nor pandas."""
 
 import json
 import os
@@ -47,14 +49,51 @@ print(json.dumps({
 """
 
 
-@pytest.fixture(scope="module")
-def probe():
+_OPS_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from hdk_tpu_torch.ops import sketches, sortops
+imported = {"jax": "jax" in sys.modules, "pandas": "pandas" in sys.modules}
+import numpy as np
+import hdk_tpu_torch
+hdk = hdk_tpu_torch.HDK(device="cpu")
+hdk.import_pydict({"k": np.array([1.5, 2.5, 1.5, 0.0]),
+                   "v": np.ma.MaskedArray([1, 2, 3, 4], [0, 0, 1, 0])},
+                  name="t")
+out = hdk.sql("SELECT k, COUNT(DISTINCT v), MEDIAN(v), "
+              "APPROX_COUNT_DISTINCT(v) FROM t GROUP BY k ORDER BY k"
+              ).to_numpy()
+print(json.dumps({
+    "files": [sortops.__file__, sketches.__file__],
+    "imported": imported,
+    "after_query": {"jax": "jax" in sys.modules,
+                    "pandas": "pandas" in sys.modules},
+    "distinct": [int(x) for x in list(out.values())[1]],
+}))
+"""
+
+
+def _run(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", _PROBE, REPO],
+    proc = subprocess.run([sys.executable, "-c", code, REPO],
                           capture_output=True, text=True, env=env,
                           cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_sort_and_sketch_modules_are_the_ports_own():
+    got = _run(_OPS_PROBE)
+    ops_dir = os.path.join(REPO, "hdk_tpu_torch", "ops") + os.sep
+    assert all(f.startswith(ops_dir) for f in got["files"]), got["files"]
+    assert got["imported"] == {"jax": False, "pandas": False}
+    assert got["after_query"] == {"jax": False, "pandas": False}
+    assert got["distinct"] == [1, 1, 1]
+
+
+@pytest.fixture(scope="module")
+def probe():
+    return _run(_PROBE)
 
 
 def test_no_jax_is_imported(probe):

@@ -141,6 +141,9 @@ def test_join_is_refused(taxi):
 
 
 def test_sort_based_groupby_is_refused(nulls):
-    _, pt = nulls
-    with pytest.raises(NotImplementedError, match="sort-based"):
-        pt.sql("SELECT y, COUNT(*) FROM t GROUP BY y")
+    """The sort-based group-by is no longer refused: a float key runs and
+    equals the JAX package (the name is kept from when the route raised;
+    tests of the route: tests/test_torch_sortgroup.py)."""
+    jx, pt = nulls
+    sql = "SELECT y, COUNT(*) FROM t GROUP BY y"
+    assert_same(jx.sql(sql), pt.sql(sql))
