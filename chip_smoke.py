@@ -9,11 +9,16 @@ Phases, each printed as it runs:
   2. build: compiles the CUDA kernels from hdk_tpu_torch/csrc;
   3. kernels: each histogram kernel against its plain PyTorch version on
      the card, at 100M rows and the main path's segment counts (random
-     ids; sorted ids at the sort route's 50M-group buffer);
+     ids; sorted ids at the sort route's 50M-group buffer; K1 also at
+     TPC-H Q1's and taxi Q2's layouts), each case timed beside its bound
+     (bytes over the device-memory rate), its share of that bound, and
+     the one PyTorch call that computes the same function where there is
+     one (``bincount``, ``index_add_``);
   4. the main path through the public entry points: taxi Q1-Q4 (builder
-     API, 100M rows), TPC-H Q1/Q6 (SQL, 60M lineitem rows) and a NULL-heavy
-     GROUP BY (SQL, 10M rows), each checked against a numpy oracle and
-     required to have run its histogram kernels;
+     API, 100M rows), TPC-H Q1/Q6 and a scalar subquery (SQL, 60M
+     lineitem rows) and a NULL-heavy GROUP BY (SQL, 10M rows), each
+     checked against a numpy oracle and required to have run its
+     histogram kernels;
   5. the sort-based GROUP BY at high NDV (bench_suite's shape, 100M rows,
      ~43M groups of 50M possible keys): HN1 ``agg("k", "count",
      "sum(v)")`` and HN2 the same count sorted descending, LIMIT 100;
@@ -24,7 +29,8 @@ Phases, each printed as it runs:
      starts below the group count (one widen-retry).
 Phases 5-6 are the sort route: their kernel launches count apart from
 phase 4's, and every kernel must launch on both.  The line before the
-last is a JSON object with the per-kernel results; the last line is
+last is a JSON object with the per-kernel results (every phase-3 case
+under ``cases``); the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
 non-zero and prints no result.  Needs numpy and torch; imports neither
 jax, pandas nor pyarrow.
@@ -51,6 +57,8 @@ HOLISTIC_ROWS = 10_000_000
 SKETCH_PREFIX_ROWS = 1_000_000
 KERNEL_ROWS = 100_000_000
 REPEATS = 5
+# K1 alone in phase 3: (E, rows, slot kind) of TPC-H Q1 and taxi Q2
+K1_SHAPES = ((7, LINEITEM_ROWS, "float64"), (10, TAXI_ROWS, "float32"))
 
 
 _START = time.perf_counter()
@@ -95,6 +103,21 @@ def cuda_ms(fn, repeats: int = REPEATS) -> float:
 
 
 # -- data ---------------------------------------------------------------
+
+def gen_taxi(rows: int):
+    """NYC-taxi columns with the distributions, dtypes and seed of the JAX
+    package's bench.py (``gen_data``)."""
+    rng = np.random.default_rng(7)
+    year_secs = 365 * 86400
+    return {
+        "cab_type": rng.integers(0, 2, rows, dtype=np.int8),
+        "passenger_count": rng.integers(0, 9, rows, dtype=np.int8),
+        "total_amount": (rng.gamma(2.0, 8.0, rows)).astype(np.float32),
+        "trip_distance": (rng.gamma(1.5, 2.5, rows)).astype(np.float32),
+        "pickup_datetime": (np.int64(1356998400)  # 2013-01-01
+                            + rng.integers(0, 4 * year_secs, rows)),
+    }
+
 
 def gen_lineitem(rows: int):
     """TPC-H lineitem columns with the distributions and seed of
@@ -173,74 +196,138 @@ def equal(got, want, what: str) -> None:
 
 # -- phase 3 ------------------------------------------------------------
 
-def kernel_phase(hist, entries, sorted_entries, card):
-    """Every kernel against its plain version at KERNEL_ROWS rows: over
-    random group ids at each of ``entries`` segments, and over sorted ids
-    at each of ``sorted_entries`` (the sort route's buffers)."""
-    dev = torch.device("cuda")
+# H100 SXM device memory, NVIDIA's data sheet: the rate bound_ms divides by
+HBM_BYTES_PER_S = 3.35e12
+
+# slots of each kernel case: (slot kind, columns, bytes per value)
+SLOT_SHAPES = {None: (0, 0), "bool": (2, 1), "int8": (1, 1), "int64": (1, 8),
+               "float32": (1, 4), "float64": (4, 8)}
+
+
+def bound_ms(n: int, kind, e: int) -> float:
+    """Least time of a histogram on the card: gid (4 B/row) and the slots
+    read once, S x E 8-byte sums written once (E counts for K4), over
+    the device-memory rate; the kernels do 1 add a value, far under the
+    card's operation rate."""
+    cols, width = SLOT_SHAPES[kind]
+    nbytes = 4 * n + n * cols * width + 8 * max(cols, 1) * e
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_cases(hist):
+    """(name, slot kind, kernel, plain version, one PyTorch call computing
+    the same function or None).  K1 takes a list of 1-D columns; the other
+    kernels an (N, S) tensor.  The library call is timed on in-range ids
+    (gids in [0, E), what the group-by hands the kernels), where
+    ``bincount`` and ``index_add_`` compute the same function; K2, K3 over
+    int8 and K1 over float32 have none (the slot type differs from the
+    accumulator's)."""
+    def index_add(dtype):
+        return lambda g, v, e: torch.zeros(
+            (e, v.shape[1]), dtype=dtype, device=g.device).index_add_(0, g, v)
+
+    return [
+        ("count_hist", None, lambda g, v, e: hist.count_hist(g, e),
+         lambda g, v, e: hist.count_hist_ref(g, e),
+         lambda g, v, e: torch.bincount(g, minlength=e)),
+        ("groupby_sums2", "bool", hist.groupby_sums2, hist.groupby_sums2_ref,
+         None),
+        ("seg_sums_exact", "int8", hist.seg_sums_exact,
+         hist.seg_sums_exact_ref, None),
+        ("seg_sums_exact", "int64", hist.seg_sums_exact,
+         hist.seg_sums_exact_ref, index_add(torch.int64)),
+        ("groupby_sums", "float32", hist.groupby_sums, hist.groupby_sums_ref,
+         None),
+        ("groupby_sums", "float64", hist.groupby_sums, hist.groupby_sums_ref,
+         index_add(torch.float64)),
+    ]
+
+
+def kernel_phase(hist, entries, sorted_entries, card, k1_shapes=(),
+                 n=KERNEL_ROWS, device="cuda"):
+    """Every kernel against its plain version at ``n`` rows: over random
+    group ids at each of ``entries`` segments, over sorted ids at each of
+    ``sorted_entries`` (the sort route's buffers), and K1 alone at each
+    (E, rows, slot kind) of ``k1_shapes``.  Random ids are checked with
+    ids beyond both ends (those rows drop out) and timed on ids in
+    [0, E), beside the library call on the same ids.  ``device`` and
+    ``n`` are for a rehearsal on the CPU."""
+    dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(7)
-    n = KERNEL_ROWS
     slots = {
         "bool": torch.rand((n, 2), device=dev, generator=gen) < 0.9,
         "int8": torch.randint(1, 51, (n, 1), device=dev, generator=gen,
                               dtype=torch.int8),
         "int64": torch.randint(-10**12, 10**12, (n, 1), device=dev,
                                generator=gen, dtype=torch.int64),
-        "float32": torch.rand((n, 1), device=dev, generator=gen,
-                              dtype=torch.float32) * 100,
-        # positive, like prices: sums without cancellation, so a relative
-        # tolerance bounds the error of the summation order alone
-        "float64": torch.rand((n, 4), device=dev, generator=gen,
-                              dtype=torch.float64) * 1e4,
+        # K1's columns, one tensor each; positive, like prices: sums
+        # without cancellation, so a relative tolerance bounds the error
+        # of the summation order alone
+        "float32": [torch.rand((n,), device=dev, generator=gen,
+                               dtype=torch.float32) * 100],
+        "float64": [torch.rand((n,), device=dev, generator=gen,
+                               dtype=torch.float64) * 1e4 for _ in range(4)],
     }
-    cases = [
-        ("count_hist", None, lambda g, v, e: hist.count_hist(g, e),
-         lambda g, v, e: hist.count_hist_ref(g, e)),
-        ("groupby_sums2", "bool", hist.groupby_sums2, hist.groupby_sums2_ref),
-        ("seg_sums_exact", "int8", hist.seg_sums_exact,
-         hist.seg_sums_exact_ref),
-        ("seg_sums_exact", "int64", hist.seg_sums_exact,
-         hist.seg_sums_exact_ref),
-        ("groupby_sums", "float32", hist.groupby_sums, hist.groupby_sums_ref),
-        ("groupby_sums", "float64", hist.groupby_sums, hist.groupby_sums_ref),
-    ]
+    # index_add_ takes one (N, S) source: stacked here, outside its timing
+    stacked = {"int64": slots["int64"],
+               "float64": torch.stack(slots["float64"], 1)}
+    cases = kernel_cases(hist)
+    shapes = ([(e, False, n, None) for e in entries]
+              + [(e, True, n, None) for e in sorted_entries]
+              + [(e, False, rows, kind) for e, rows, kind in k1_shapes])
     report = {}
-    for e, is_sorted in ([(e, False) for e in entries]
-                         + [(e, True) for e in sorted_entries]):
+    for e, is_sorted, rows, only in shapes:
         if is_sorted:
-            gid = torch.sort(torch.randint(0, e, (n,), device=dev,
+            gid = torch.sort(torch.randint(0, e, (rows,), device=dev,
                                            generator=gen,
                                            dtype=torch.int32)).values
+            check_gid = gid
         else:
-            # gids beyond both ends: those rows must drop out
-            gid = torch.randint(-2, e + 2, (n,), device=dev, generator=gen,
+            gid = torch.randint(0, e, (rows,), device=dev, generator=gen,
                                 dtype=torch.int32)
-        for name, kind, kern, ref in cases:
+            # gids beyond both ends: those rows must drop out
+            check_gid = torch.randint(-2, e + 2, (rows,), device=dev,
+                                      generator=gen, dtype=torch.int32)
+        for name, kind, kern, ref, lib in cases:
+            if only is not None and (name, kind) != ("groupby_sums", only):
+                continue
             v = slots[kind] if kind else None
-            got = kern(gid, v, e)
-            want = ref(gid, v, e)
+            if v is not None and rows != n:
+                v = [c[:rows] for c in v] if isinstance(v, list) else v[:rows]
+            got = kern(check_gid, v, e)
+            want = ref(check_gid, v, e)
             torch.cuda.synchronize()
+            err = float((got - want).abs().max())
             if got.dtype.is_floating_point:
-                err = float((got - want).abs().max())
                 ok = torch.allclose(got, want, rtol=1e-10, atol=0.0)
                 tol = "rtol 1e-10 (atomic float order varies)"
             else:
-                err = float((got - want).abs().max())
                 ok = bool(torch.equal(got, want))
                 tol = "exact"
             check(ok, f"{name}[{kind}] E={e}: kernel disagrees "
                       f"(max abs err {err})")
+            del got, want
             ms = cuda_ms(lambda: kern(gid, v, e))
             plain_ms = cuda_ms(lambda: ref(gid, v, e))
-            log(f"kernel {name:15s} slots={kind or '-':8s} N={n} E={e:6d} "
+            library_ms = None
+            if lib is not None:
+                src = stacked.get(kind)
+                src = src[:rows] if src is not None else None
+                library_ms = cuda_ms(lambda: lib(gid, src, e))
+            bound = bound_ms(rows, kind, e)
+            log(f"kernel {name:15s} slots={kind or '-':8s} N={rows} E={e} "
                 f"{'sorted ' if is_sorted else ''}ok ({tol}) "
                 f"max_abs_err={err!r} kernel_ms={ms!r} "
-                f"plain_ms={plain_ms!r} [{card}]")
+                f"plain_ms={plain_ms!r} library_ms={library_ms!r} "
+                f"bound_ms={bound!r} share={bound / ms!r} [{card}]")
             rec = report.setdefault(name, {"max_abs_err": 0.0, "cases": []})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec["cases"].append({"slots": kind, "E": e, "sorted": is_sorted,
-                                 "ms": ms, "plain_ms": plain_ms})
-        del gid
+            rec["cases"].append({
+                "slots": kind, "S": SLOT_SHAPES[kind][0], "E": e, "N": rows,
+                "sorted": is_sorted, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound,
+                "share": bound / ms})
+        del gid, check_gid
     return report
 
 
@@ -344,6 +431,9 @@ TPCH_Q6 = (
     "WHERE l_shipdate >= TIMESTAMP '1994-01-01 00:00:00' "
     "AND l_shipdate < TIMESTAMP '1995-01-01 00:00:00' "
     "AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24")
+SCALAR_SUBQUERY = (
+    "SELECT COUNT(*), SUM(l_extendedprice) FROM lineitem "
+    "WHERE l_extendedprice > (SELECT AVG(l_extendedprice) FROM lineitem)")
 NULLS_Q = ("SELECT g, COUNT(*), COUNT(x), SUM(x), AVG(y) FROM t "
            "GROUP BY g ORDER BY g")
 
@@ -393,6 +483,14 @@ def tpch_phase(hdk_mod, hdk, card, hist):
            & (li["l_quantity"] < 24))
     close(got, [np.sum(li["l_extendedprice"][sel] * li["l_discount"][sel])],
           1e-9, "tpch_q6 revenue")
+
+    res = timed_query(lambda: hdk.sql(SCALAR_SUBQUERY), card,
+                      "scalar_subquery", LINEITEM_ROWS, hist, [])
+    count, total = res.to_numpy().values()
+    price = li["l_extendedprice"]
+    above = price[price > price.mean()]
+    equal(count, [above.size], "scalar_subquery count")
+    close(total, [above.sum()], 1e-9, "scalar_subquery sum")
     hdk.drop_table("lineitem")
 
 
@@ -720,6 +818,10 @@ def sketch_exact_check(out, data, executor, what):
         f"groups")
 
 
+# slots of each kernel's headline case in the kernels line
+REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
+                  "seg_sums_exact": "int64", "groupby_sums": "float64"}
+
 REPLACES = {
     "count_hist": "hdk_tpu/ops/pallas_hist2.py:89",
     "groupby_sums2": "hdk_tpu/ops/pallas_groupby.py:180",
@@ -750,18 +852,18 @@ def main() -> None:
     build.library()
     log(f"build: {so.name} in {time.perf_counter() - t0:.2f} s")
 
-    import bench  # numpy-only at module level
-
     t0 = time.perf_counter()
-    taxi = bench.gen_data(TAXI_ROWS)
+    taxi = gen_taxi(TAXI_ROWS)
     log(f"taxi data: {TAXI_ROWS} rows generated in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # phase 3: kernels against their plain versions; the group-by hands
     # them entry_count + 1 segments (the last one discards dead rows)
     entries = (11, 12, taxi_q4_entries(taxi) + 1, 65536)
-    # HN1's group buffer: 50M keys + a NULL slot, + the discard segment
-    report = kernel_phase(hist, entries, (HIGH_NDV_KEYS + 2,), card)
+    # HN1's group buffer: 50M keys + a NULL slot, + the discard segment;
+    # K1 alone at TPC-H Q1's (6 groups) and taxi Q2's (9 groups) layouts
+    report = kernel_phase(hist, entries, (HIGH_NDV_KEYS + 2,), card,
+                          k1_shapes=K1_SHAPES)
     torch.cuda.empty_cache()
 
     # phase 4: the main path; counters count its launches only
@@ -793,20 +895,22 @@ def main() -> None:
 
     kernels = []
     for name, rec in report.items():
-        # ms / plain_ms at the taxi Q4 segment count, first slot dtype
-        q4 = next(c for c in rec["cases"] if c["E"] == entries[2])
-        srt = next(c for c in rec["cases"] if c["sorted"])
+        # the headline case: taxi Q4's segment count, the kernel's widest
+        # slots that one library call also computes
+        kind = REPORTED_SLOTS[name]
+        q4 = next(c for c in rec["cases"]
+                  if c["E"] == entries[2] and c["slots"] == kind)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "hdk_tpu_torch/csrc/hist.cu",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": q4["ms"],
-            "plain_ms": q4["plain_ms"],
-            "shape": f"N={KERNEL_ROWS} E={q4['E']} slots={q4['slots']}",
+            "plain_ms": q4["plain_ms"], "bound_ms": q4["bound_ms"],
+            "bound_by": "bytes", "library_ms": q4["library_ms"],
+            "shape": f"N={q4['N']} E={q4['E']} slots={kind}",
             "sort_route_launches": sort_launches[name],
             "sort_route_largest_E": recorder.max_e[name],
-            "sorted_E": srt["E"], "sorted_ms": srt["ms"],
-            "sorted_plain_ms": srt["plain_ms"],
+            "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}))

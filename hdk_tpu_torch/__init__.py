@@ -5,7 +5,9 @@ chain -> GROUP BY (dense perfect-hash or sort-based, every aggregate but
 TOP_K/BOTTOM_K) or scalar aggregate -> ORDER BY / LIMIT -> result, on an
 explicit torch device.  The histograms of the group-by run hand-written
 CUDA kernels (``csrc/hist.cu``) on a CUDA device and their plain PyTorch
-versions on the CPU.
+versions on the CPU.  The host side (types, config, builder, IR, SQL
+parser and binder, host storage, planner) is the port's own copy of
+hdk_tpu's backend-neutral modules; nothing of hdk_tpu is imported.
 
     import hdk_tpu_torch
     hdk = hdk_tpu_torch.HDK(device="cuda")
@@ -20,59 +22,23 @@ raise ``NotImplementedError`` naming their ROADMAP item.
 
 from __future__ import annotations
 
-import os
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_REFERENCE = os.path.join(os.path.dirname(_HERE), "hdk_tpu")
+import numpy as np
+import torch
 
-
-def _overlay(init_file: str, subdir: str = "") -> List[str]:
-    """``__path__`` for a package of the port: its own directory first,
-    then the matching directory of hdk_tpu.
-
-    hdk_tpu's host-side modules (types, config, builder, IR, SQL, host
-    storage, planner) never import jax, but importing them as
-    ``hdk_tpu.*`` would run ``hdk_tpu/__init__.py``, which does.  Listed
-    on the port's own ``__path__``, they load from the one source as
-    ``hdk_tpu_torch.*`` instead, resolve their relative imports inside the
-    port, and a module the port writes itself (``storage/table.py``,
-    ``exec/scalar.py``...) takes precedence over hdk_tpu's of the same
-    name.  ``SHARED_MODULES`` lists what may load this way."""
-    return [os.path.dirname(os.path.abspath(init_file)),
-            os.path.join(_REFERENCE, subdir)]
-
-
-__path__ = _overlay(__file__)
-
-# modules of hdk_tpu that the port loads through the overlay; anything
-# else of hdk_tpu imports jax and must never load here
-SHARED_MODULES = frozenset({
-    "types", "config", "builder", "udf",
-    "ir", "ir.expr", "ir.node",
-    "sql", "sql.ast", "sql.lexer", "sql.parser", "sql.binder",
-    "storage.schema", "storage.dictionary", "storage.importers",
-    "storage.native", "storage.memory",
-    "exec.optimizer", "exec.cost", "exec.ranges", "exec.codecache",
-    "exec.prune",
-    "utils", "utils.logger", "utils.timer",
-})
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-
-from . import types  # noqa: E402
-from .builder import QueryExpr, QueryNode, if_then_else  # noqa: E402
-from .config import Config, build_config  # noqa: E402
-from .ir import expr as _ir_expr  # noqa: E402
-from .ir import node as _ir_node  # noqa: E402
-from .exec.common import ExecTable  # noqa: E402
-from .exec.executor import Executor  # noqa: E402
-from .exec import materialize as _mat  # noqa: E402
-from .storage.dictionary import DictionaryRegistry  # noqa: E402
-from .storage import importers as _imp  # noqa: E402
-from .storage.schema import (  # noqa: E402
+from . import types
+from .builder import QueryExpr, QueryNode, if_then_else
+from .config import Config, build_config
+from .ir import expr as _ir_expr
+from .ir import node as _ir_node
+from .exec.common import ExecTable
+from .exec.executor import Executor
+from .exec import materialize as _mat
+from .storage.dictionary import DictionaryRegistry
+from .storage import importers as _imp
+from .storage.schema import (
     DATA_SCHEMA_ID,
     RESULT_SCHEMA_ID,
     SchemaRegistry,
@@ -264,7 +230,7 @@ class HDK:
 
     # -- SQL ----------------------------------------------------------------
     def sql(self, query: str, **options) -> "QueryResult":
-        """Execute a SQL query through the shared parser and binder."""
+        """Execute a SQL query through the port's parser and binder."""
         from .sql.binder import Binder
 
         return self._run(Binder(self).bind(query), **options)

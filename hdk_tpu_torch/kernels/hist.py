@@ -6,7 +6,7 @@ Four wrappers keep the names of the TPU kernels they replace
   * ``count_hist``     (K4, pallas_hist2.py)  counts of gid      -> (E,) int64
   * ``groupby_sums2``  (K2, pallas_groupby.py) bool slots       -> (E, S) int64
   * ``seg_sums_exact`` (K3, pallas_hist.py)   int8..int64 slots -> (L, E) int64
-  * ``groupby_sums``   (K1, pallas_groupby.py) f32/f64 slots    -> (E, S) float64
+  * ``groupby_sums``   (K1, pallas_groupby.py) S f32/f64 columns -> (E, S) float64
 
 Each computes, over the rows r with 0 <= gid[r] < E, the sum of the row's
 slot values per gid; rows with gid outside [0, E) drop out.  The TPU
@@ -22,13 +22,20 @@ launches and nothing else.
 
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from typing import Dict, List, Sequence
 
 import torch
 
 # (L x E) shared-memory partials above this many bytes add straight into
 # global memory instead (H100: 227 KB per block at most)
 SMEM_LIMIT_BYTES = 200 * 1024
+
+# K1 (csrc/hist.cu::k1_kernel): columns per launch, and the most entries
+# for which each warp keeps a private (S x E) copy (above it one copy per
+# block is faster: measured on one H100, PERF.md)
+K1_MAX_COLS = 8
+K1_PRIVATE_MAX_ENTRIES = 16
 
 _INT_SUFFIX = {torch.int8: "i8", torch.int16: "i16", torch.int32: "i32",
                torch.int64: "i64"}
@@ -166,34 +173,70 @@ def seg_sums_exact(gid: torch.Tensor, slots: torch.Tensor,
 
 # -- K1 ---------------------------------------------------------------------
 
-def groupby_sums_ref(gid: torch.Tensor, vals: torch.Tensor,
+def _check_cols(gid: torch.Tensor, cols: List[torch.Tensor]) -> None:
+    if not cols:
+        raise ValueError("groupby_sums takes at least one column")
+    dtype = cols[0].dtype
+    if dtype not in _FLOAT_SUFFIX:
+        raise ValueError(f"groupby_sums takes float32/float64 columns, got "
+                         f"{dtype}")
+    for c in cols:
+        if c.dim() != 1 or c.shape[0] != gid.shape[0]:
+            raise ValueError(f"column {tuple(c.shape)} does not match "
+                             f"{gid.shape[0]} rows")
+        if c.dtype != dtype:
+            raise ValueError(f"groupby_sums takes columns of one dtype, got "
+                             f"{dtype} and {c.dtype}")
+
+
+def _k1_mode(n_slots: int, n_entries: int) -> int:
+    """Where K1's warps add: 2 a private (S x E) copy per warp in shared
+    memory, 1 one copy per block (shared atomics), 0 global atomics."""
+    if n_entries <= K1_PRIVATE_MAX_ENTRIES:
+        return 2
+    return int(n_slots * n_entries * 8 <= SMEM_LIMIT_BYTES)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the kernel's 16-byte loads can read it, else a
+    contiguous copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def groupby_sums_ref(gid: torch.Tensor, cols: Sequence[torch.Tensor],
                      n_entries: int) -> torch.Tensor:
     live = _live(gid, n_entries)
-    out = torch.zeros((n_entries, vals.shape[1]), dtype=torch.float64,
+    vals = torch.stack([c[live].to(torch.float64) for c in cols], dim=1)
+    out = torch.zeros((n_entries, len(cols)), dtype=torch.float64,
                       device=gid.device)
-    return out.index_add_(0, gid[live].long(), vals[live].to(torch.float64))
+    return out.index_add_(0, gid[live].long(), vals)
 
 
-def groupby_sums(gid: torch.Tensor, vals: torch.Tensor,
+def groupby_sums(gid: torch.Tensor, cols: Sequence[torch.Tensor],
                  n_entries: int) -> torch.Tensor:
-    """(n_entries, S) float64 per-gid sums of (N, S) float32/float64
-    slots.  The summation order varies from run to run on the card."""
+    """(n_entries, S) float64 per-gid sums of S 1-D float32 or float64
+    columns of one dtype, read where they lie (a misaligned or strided
+    column is copied first).  Up to ``K1_MAX_COLS`` columns a launch.  The
+    summation order varies from run to run on the card."""
     _check_gid(gid)
-    _check_rows(gid, vals)
-    suffix = _FLOAT_SUFFIX.get(vals.dtype)
-    if suffix is None:
-        raise ValueError(f"groupby_sums takes float32/float64 slots, got "
-                         f"{vals.dtype}")
-    if not _route(gid, vals):
-        return groupby_sums_ref(gid, vals, n_entries)
-    vals = vals.contiguous()
-    n_slots = vals.shape[1]
-    out = torch.zeros((n_slots, n_entries), dtype=torch.float64,
+    cols = list(cols)
+    _check_cols(gid, cols)
+    if not _route(gid, *cols):
+        return groupby_sums_ref(gid, cols, n_entries)
+    suffix = _FLOAT_SUFFIX[cols[0].dtype]
+    gid = _aligned(gid)
+    cols = [_aligned(c) for c in cols]
+    out = torch.zeros((len(cols), n_entries), dtype=torch.float64,
                       device=gid.device)
-    _launch(f"hdk_groupby_sums_{suffix}", gid, gid.data_ptr(),
-            vals.data_ptr(), gid.shape[0], n_slots, n_entries,
-            out.data_ptr(), _use_shared(n_slots, n_entries, 8))
-    groupby_sums.launches += 1
+    for s0 in range(0, len(cols), K1_MAX_COLS):
+        chunk = cols[s0:s0 + K1_MAX_COLS]
+        ptrs = (ctypes.c_void_p * len(chunk))(*[c.data_ptr() for c in chunk])
+        _launch(f"hdk_groupby_sums_cols_{suffix}", gid, gid.data_ptr(), ptrs,
+                gid.shape[0], len(chunk), n_entries, out[s0].data_ptr(),
+                _k1_mode(len(chunk), n_entries))
+        groupby_sums.launches += 1
     return out.t()
 
 

@@ -61,15 +61,16 @@ def seg_sums(columns: Sequence[torch.Tensor], gid: torch.Tensor, n: int,
         for i in ones_ids:
             out[i] = counts
     for (kind, _dtype), idx in _group(columns, set(ones_ids)).items():
-        # one column is a view, several are stacked (N, S) in one copy
-        slots = (columns[idx[0]].reshape(-1, 1) if len(idx) == 1
-                 else torch.stack([columns[i] for i in idx], dim=1))
-        if kind == "bool":
-            sums = hist.groupby_sums2(gid, slots, n).t()
-        elif kind == "int":
-            sums = hist.seg_sums_exact(gid, slots, n)
+        if kind == "float":  # K1 reads the columns where they lie
+            sums = hist.groupby_sums(gid, [columns[i] for i in idx], n).t()
         else:
-            sums = hist.groupby_sums(gid, slots, n).t()
+            # one column is a view, several are stacked (N, S) in one copy
+            slots = (columns[idx[0]].reshape(-1, 1) if len(idx) == 1
+                     else torch.stack([columns[i] for i in idx], dim=1))
+            if kind == "bool":
+                sums = hist.groupby_sums2(gid, slots, n).t()
+            else:
+                sums = hist.seg_sums_exact(gid, slots, n)
         for j, i in enumerate(idx):
             out[i] = sums[j]
     return out  # type: ignore[return-value]

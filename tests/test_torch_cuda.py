@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain version, in both
 the shared-memory and the global-atomic mode and over the sorted group
-ids of the sort-based group-by, and the main path and the sort route on
-a CUDA session against the same session on the CPU.  Skips where there
+ids of the sort-based group-by, K1 at the shapes its design treats
+apart, and the main path, the sort route and scalar subqueries on a CUDA
+session against the same session on the CPU.  Skips where there
 is no card.  On the card, without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -45,9 +46,10 @@ def test_kernels_match_plain_versions(cuda, n_entries):
                          dtype=torch.int64)
     small = torch.randint(-128, 128, (n, 1), device=cuda, generator=gen,
                           dtype=torch.int8)
-    f32 = torch.rand((n, 2), device=cuda, generator=gen) * 100
-    f64 = torch.rand((n, 2), device=cuda, generator=gen,
-                     dtype=torch.float64) * 1e4
+    f32 = [torch.rand((n,), device=cuda, generator=gen) * 100
+           for _ in range(2)]
+    f64 = [torch.rand((n,), device=cuda, generator=gen,
+                      dtype=torch.float64) * 1e4 for _ in range(2)]
     refs = {k.__name__: getattr(hist, k.__name__ + "_ref")
             for k in hist.KERNELS}
     before = hist.launches()
@@ -125,8 +127,101 @@ def test_seg_sums_over_sorted_gid(cuda, n_entries):
         assert torch.equal(got[i], hist.seg_sums_exact_ref(
             gid, cols[i][:, None], n_entries)[0])
     torch.testing.assert_close(
-        got[4], hist.groupby_sums_ref(gid, cols[4][:, None], n_entries)[:, 0],
+        got[4], hist.groupby_sums_ref(gid, [cols[4]], n_entries)[:, 0],
         rtol=1e-10, atol=0)
+
+
+# K1 at the shapes its design treats apart: one group (every lane a peer),
+# E = 7 with 4 slots (warp-private copies), long sorted runs (runs merged
+# in registers), ids beyond both ends, 9 columns (two launches), E past
+# shared memory (global atomics); float32 and float64, positive values
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", [
+    "one_group", "e7_s4", "sorted_runs", "out_of_range", "s9",
+    "global_atomics", "ragged"])
+def test_groupby_sums_cols(cuda, case, dtype):
+    n, n_entries, n_slots, pad = 3_000_000, 7, 4, 0
+    if case == "one_group":
+        n_entries = 1
+    elif case == "sorted_runs":
+        n_entries = 1000  # ~3000-row runs
+    elif case == "out_of_range":
+        pad = 5
+    elif case == "s9":
+        n_slots = 9
+    elif case == "global_atomics":
+        n_entries = 300_000
+    elif case == "ragged":
+        n = 1_000_004
+    gen = torch.Generator(device=cuda).manual_seed(n + n_entries)
+    gid = torch.randint(-pad, n_entries + pad, (n,), device=cuda,
+                        generator=gen, dtype=torch.int32)
+    if case == "sorted_runs":
+        gid = torch.sort(gid).values
+    cols = [torch.rand((n,), device=cuda, generator=gen, dtype=dtype) * 100
+            for _ in range(n_slots)]
+    if case == "ragged":
+        # an odd row count, starting one row in: no 16-byte alignment
+        gid, cols = gid[1:], [c[1:] for c in cols]
+    before = hist.groupby_sums.launches
+    got = hist.groupby_sums(gid, cols, n_entries)
+    assert hist.groupby_sums.launches - before == (2 if n_slots > 8 else 1)
+    want = hist.groupby_sums_ref(gid, cols, n_entries)
+    torch.cuda.synchronize()
+    assert got.shape == (n_entries, n_slots) and got.dtype == torch.float64
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=0)
+
+
+# every mode K1's wrapper may pick: warp-private copies (2), one copy per
+# block (1), global atomics (0); the last two match gids only where a run
+# crosses lanes
+@pytest.mark.parametrize("mode", [2, 1, 0])
+@pytest.mark.parametrize("case", ["e7_s4", "sorted_runs", "out_of_range"])
+def test_groupby_sums_cols_every_mode(cuda, monkeypatch, case, mode):
+    n, n_entries, pad = 2_000_003, 7, 0
+    if case == "sorted_runs":
+        n_entries = 500
+    elif case == "out_of_range":
+        pad = 3
+    gen = torch.Generator(device=cuda).manual_seed(mode)
+    gid = torch.randint(-pad, n_entries + pad, (n,), device=cuda,
+                        generator=gen, dtype=torch.int32)
+    if case == "sorted_runs":
+        gid = torch.sort(gid).values
+    cols = [torch.rand((n,), device=cuda, generator=gen,
+                       dtype=torch.float64) * 100 for _ in range(4)]
+    monkeypatch.setattr(hist, "_k1_mode", lambda s, e: mode)
+    got = hist.groupby_sums(gid, cols, n_entries)
+    torch.testing.assert_close(got, hist.groupby_sums_ref(gid, cols,
+                                                          n_entries),
+                               rtol=1e-10, atol=0)
+
+
+def test_scalar_subquery_on_the_card(cuda):
+    """The binder reads the subquery's value from a CUDA tensor."""
+    rng = np.random.default_rng(4)
+    n = 100_000
+    x = rng.integers(-10**6, 10**6, n)
+    data = {"g": rng.integers(0, 40, n),
+            "x": np.ma.MaskedArray(x, rng.random(n) < 0.1),
+            "y": rng.gamma(3.0, 100.0, n)}
+    sqls = ["SELECT COUNT(*), SUM(y) FROM t WHERE y > (SELECT AVG(y) FROM t)",
+            "SELECT g, COUNT(*) FROM t WHERE x < (SELECT MAX(x) FROM t) "
+            "GROUP BY g ORDER BY g",
+            "SELECT COUNT(*) FROM t WHERE x > (SELECT MAX(x) FROM t "
+            "WHERE g > 100)"]
+    out = []
+    for device in ("cpu", "cuda"):
+        hdk = hdk_tpu_torch.HDK(device=device)
+        hdk.import_pydict(data, name="t")
+        out.append([hdk.sql(q).to_numpy() for q in sqls])
+    for cpu, gpu in zip(*out):
+        for name in cpu:
+            if cpu[name].dtype.kind == "f":
+                np.testing.assert_allclose(gpu[name], cpu[name], rtol=1e-9)
+            else:
+                assert np.array_equal(gpu[name], cpu[name]), name
+    assert int(list(out[1][2].values())[0][0]) == 0  # MAX over no row: NULL
 
 
 def test_sort_route_on_the_card(cuda, monkeypatch):

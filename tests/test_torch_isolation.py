@@ -1,11 +1,15 @@
-"""hdk_tpu_torch never imports jax: in a fresh interpreter, importing the
-port and running a query loads no jax module, and nothing of hdk_tpu's
-directories except the shared host modules it names.  The sort and sketch
+"""hdk_tpu_torch never imports jax nor anything of hdk_tpu: in a fresh
+interpreter, importing the port and running a GROUP BY and a scalar
+subquery loads no jax module and no module whose file lies under
+hdk_tpu/.  No source of the port, nor the smoke scripts, names hdk_tpu or
+the bench scripts in an import or on an import path.  The sort and sketch
 modules are the port's own files, and importing them and running the
 sort route on numpy data loads neither jax nor pandas."""
 
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -24,12 +28,16 @@ t = hdk.import_pydict({"k": [1, 2, 1, None], "v": [1.0, 2.0, 3.0, 4.0]},
 res = hdk.sql("SELECT k, SUM(v), COUNT(*) FROM t WHERE v > 1 GROUP BY k "
               "ORDER BY k")
 out = res.to_numpy()
+sub = hdk.sql("SELECT COUNT(*) FROM t WHERE v > (SELECT AVG(v) FROM t)")
 ref_dir = os.path.join(sys.argv[1], "hdk_tpu") + os.sep
-shared = []
+port_dir = os.path.join(sys.argv[1], "hdk_tpu_torch") + os.sep
+under_ref, port_modules = [], []
 for name, mod in list(sys.modules.items()):
     path = getattr(mod, "__file__", None) or ""
     if path.startswith(ref_dir):
-        shared.append(name)
+        under_ref.append(name)
+    if path.startswith(port_dir):
+        port_modules.append(name)
 try:
     hdk_tpu_torch.HDK(device="cuda")
     cuda_raised = False
@@ -40,9 +48,10 @@ print(json.dumps({
                   if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "hdk_tpu": sorted(m for m in sys.modules
                       if m == "hdk_tpu" or m.startswith("hdk_tpu.")),
-    "shared": sorted(shared),
-    "allowed": sorted(hdk_tpu_torch.SHARED_MODULES),
+    "under_ref": sorted(under_ref),
+    "port_modules": sorted(port_modules),
     "sum": [float(x) for x in list(out.values())[1]],
+    "subquery_count": int(list(sub.to_numpy().values())[0][0]),
     "cuda_available": __import__("torch").cuda.is_available(),
     "cuda_raised": cuda_raised,
 }))
@@ -102,10 +111,17 @@ def test_no_jax_is_imported(probe):
 
 
 def test_only_shared_modules_load_from_hdk_tpu(probe):
-    allowed = {f"hdk_tpu_torch.{m}" for m in probe["allowed"]}
-    assert probe["shared"], "the overlay loaded no shared module"
-    assert set(probe["shared"]) <= allowed, (
-        sorted(set(probe["shared"]) - allowed))
+    """No module at all loads from hdk_tpu's files: the host modules
+    (types, builder, IR, SQL, planner, host storage) are the port's own."""
+    assert probe["under_ref"] == []
+    for m in ("types", "builder", "sql.binder", "exec.optimizer",
+              "storage.importers", "utils.logger"):
+        assert f"hdk_tpu_torch.{m}" in probe["port_modules"], m
+
+
+def test_scalar_subquery_runs_without_jax(probe):
+    # AVG(v) = 2.5: rows with v = 3.0 and 4.0
+    assert probe["subquery_count"] == 2
 
 
 def test_query_runs_without_jax(probe):
@@ -121,3 +137,47 @@ def test_cuda_session_without_cuda_raises(probe, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         hdk_tpu_torch.HDK(device="cuda")
+
+
+# -- static: no source names hdk_tpu or a bench script as an import ------
+
+_SOURCES = sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "hdk_tpu_torch", "**", "*.py"),
+                       recursive=True)) + ["chip_smoke.py", "k1_ab.py", "profile_smoke.py"]
+
+_FORBIDDEN = [
+    (re.compile(r"^\s*import\s+hdk_tpu\b", re.M), "import hdk_tpu"),
+    (re.compile(r"^\s*from\s+hdk_tpu[\s.]", re.M), "from hdk_tpu"),
+    (re.compile(r"^\s*(import|from)\s+(bench|bench_suite|bench_scaling)\b",
+                re.M), "import of a bench script"),
+    # the reference's directory joined onto a path, or put on an import path
+    (re.compile(r"[\"']hdk_tpu[\"']"), "the hdk_tpu directory as a literal"),
+    (re.compile(r"^.*(sys\.path|spec_from_file_location|import_module|"
+                r"__path__).*\bhdk_tpu\b(?!_).*$", re.M),
+     "hdk_tpu on an import path"),
+    (re.compile(r"^\s*__path__\s*=", re.M), "a __path__ rewrite"),
+]
+
+
+@pytest.mark.parametrize("rel", _SOURCES)
+def test_source_imports_nothing_of_hdk_tpu(rel):
+    with open(os.path.join(REPO, rel)) as f:
+        text = f.read()
+    for pattern, what in _FORBIDDEN:
+        m = pattern.search(text)
+        assert m is None, f"{rel}: {what}: {m.group(0).strip()!r}"
+
+
+def test_forbidden_patterns_catch_imports():
+    bad = ["import hdk_tpu", "from hdk_tpu.ops import onehot",
+           "from hdk_tpu import types", "    import bench",
+           "from bench_suite import gen_lineitem",
+           'sys.path.insert(0, os.path.join(ROOT, "hdk_tpu"))',
+           "__path__ = _overlay(__file__)"]
+    good = ["import hdk_tpu_torch", "from hdk_tpu_torch.kernels import hist",
+            '"replaces": "hdk_tpu/ops/pallas_hist2.py:89"',
+            "import benchmark_helpers"]
+    hit = lambda line: any(p.search(line) for p, _ in _FORBIDDEN)
+    assert all(hit(b) for b in bad), [b for b in bad if not hit(b)]
+    assert not any(hit(g) for g in good), [g for g in good if hit(g)]

@@ -13,11 +13,18 @@ import jax.numpy as jnp
 from hdk_tpu.ops import pallas_groupby, pallas_hist, pallas_hist2
 
 from hdk_tpu_torch.kernels import hist
+from hdk_tpu_torch.ops import onehot
 
 
 def _gid(rng, n_rows, n_entries):
     # rows outside [0, E) at both ends must drop out
     return rng.integers(-3, n_entries + 3, n_rows).astype(np.int32)
+
+
+def _columns(vals):
+    """K1's input: one contiguous 1-D tensor per column of ``vals``."""
+    return [torch.from_numpy(np.ascontiguousarray(vals[:, s]))
+            for s in range(vals.shape[1])]
 
 
 # -- against the Pallas kernels, on their domain: exact for K2-K4 ---------
@@ -70,8 +77,8 @@ def test_groupby_sums_matches_pallas():
     vals = rng.normal(size=(n, 2)).astype(np.float32)
     want = np.asarray(pallas_groupby.groupby_sums(
         jnp.asarray(gid), jnp.asarray(vals), e, interpret=True))
-    got = hist.groupby_sums(torch.from_numpy(gid), torch.from_numpy(vals), e)
-    assert got.dtype == torch.float64
+    got = hist.groupby_sums(torch.from_numpy(gid), _columns(vals), e)
+    assert got.dtype == torch.float64 and got.shape == (e, 2)
     # the JAX test's own tolerance: the TPU kernel accumulates in float32
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-3)
 
@@ -115,8 +122,42 @@ def test_wide_domain_against_numpy(n_entries):
     for dt in (np.float32, np.float64):
         vals = rng.gamma(2.0, 10.0, (n, 3)).astype(dt)
         np.testing.assert_allclose(
-            hist.groupby_sums(g, torch.from_numpy(vals), n_entries).numpy(),
+            hist.groupby_sums(g, _columns(vals), n_entries).numpy(),
             _add_at(gid, vals, n_entries, np.float64), rtol=1e-12)
+
+
+# -- seg_sums hands K1 the caller's columns ---------------------------------
+
+def test_seg_sums_passes_float_columns_unstacked(monkeypatch):
+    rng = np.random.default_rng(2)
+    n, e = 1000, 9
+    gid = torch.from_numpy(_gid(rng, n, e))
+    cols = [torch.from_numpy(rng.random(n)),                  # f64
+            torch.from_numpy(rng.random(n) < 0.5),            # bool
+            torch.from_numpy(rng.random(n).astype(np.float32)),
+            torch.from_numpy(rng.random(n)),                  # f64
+            torch.from_numpy(rng.integers(0, 9, n))]          # int64
+    seen = []
+    real = hist.groupby_sums
+
+    def spy(g, float_cols, n_entries):
+        seen.append(list(float_cols))
+        return real(g, float_cols, n_entries)
+
+    monkeypatch.setattr(hist, "groupby_sums", spy)
+    got = onehot.seg_sums(cols, gid, e)
+    # one call per float dtype, each with the caller's own tensors
+    by_dtype = {c[0].dtype: c for c in seen}
+    assert len(seen) == 2
+    assert [id(c) for c in by_dtype[torch.float64]] == [id(cols[0]),
+                                                        id(cols[3])]
+    assert [id(c) for c in by_dtype[torch.float32]] == [id(cols[2])]
+    g = gid.numpy()
+    for i in (0, 2, 3):
+        np.testing.assert_allclose(
+            got[i].numpy(),
+            _add_at(g, cols[i].numpy()[:, None], e, np.float64)[:, 0],
+            rtol=1e-12)
 
 
 # -- dispatch ---------------------------------------------------------------
@@ -134,7 +175,7 @@ def test_cpu_tensor_takes_the_plain_version(monkeypatch):
     hist.count_hist(gid, 3)
     hist.groupby_sums2(gid, ones, 3)
     hist.seg_sums_exact(gid, ones.to(torch.int64), 3)
-    hist.groupby_sums(gid, ones.to(torch.float32), 3)
+    hist.groupby_sums(gid, [ones[:, 0].to(torch.float32)], 3)
     assert calls == [k.__name__ for k in hist.KERNELS]
     assert set(hist.launches().values()) == {0}
 
@@ -146,7 +187,12 @@ def test_other_device_raises(name):
              "groupby_sums2": torch.zeros((8, 1), dtype=torch.bool),
              "seg_sums_exact": torch.zeros((8, 1), dtype=torch.int64),
              "groupby_sums": torch.zeros((8, 1), dtype=torch.float64)}[name]
-    args = (gid, 4) if slots is None else (gid, slots.to("meta"), 4)
+    if slots is None:
+        args = (gid, 4)
+    elif name == "groupby_sums":  # a list of columns
+        args = (gid, [slots[:, 0].to("meta")], 4)
+    else:
+        args = (gid, slots.to("meta"), 4)
     with pytest.raises(ValueError, match="device"):
         getattr(hist, name)(*args)
 
@@ -159,4 +205,50 @@ def test_rejects_wrong_inputs():
     with pytest.raises(ValueError, match="bool"):
         hist.groupby_sums2(gid, torch.zeros((8, 1), dtype=torch.int8), 4)
     with pytest.raises(ValueError, match="rows"):
-        hist.groupby_sums(gid, torch.zeros((7, 1), dtype=torch.float32), 4)
+        hist.groupby_sums(gid, [torch.zeros(7, dtype=torch.float32)], 4)
+
+
+@pytest.mark.parametrize("cols,match", [
+    ([], "at least one"),
+    ([torch.zeros(8, dtype=torch.int32)], "float32/float64"),
+    ([torch.zeros((8, 1))], "does not match"),
+    ([torch.zeros(8), torch.zeros(8, dtype=torch.float64)], "one dtype"),
+], ids=["empty", "int", "2-D", "mixed"])
+def test_groupby_sums_rejects_columns(cols, match):
+    gid = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        hist.groupby_sums(gid, cols, 4)
+
+
+@pytest.mark.parametrize("n_cols", [1, 8, 9, 17])
+def test_groupby_sums_many_columns(n_cols):
+    """Column lists past one launch's 8 (two or three launches on the
+    card), each column a view of its own: a strided one, one at an odd
+    offset, and a float32 list."""
+    rng = np.random.default_rng(n_cols)
+    n, e = 5000, 13
+    gid = _gid(rng, n, e)
+    vals = rng.gamma(2.0, 10.0, (n, n_cols))
+    want = _add_at(gid, vals, e, np.float64)
+    g = torch.from_numpy(gid)
+    wide = torch.from_numpy(vals)
+    got = hist.groupby_sums(g, [wide[:, s] for s in range(n_cols)], e)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+    shifted = torch.from_numpy(np.concatenate([[0.0], vals[:, 0]]))[1:]
+    np.testing.assert_allclose(
+        hist.groupby_sums(g, [shifted], e).numpy()[:, 0], want[:, 0],
+        rtol=1e-12)
+    f32 = [torch.from_numpy(np.ascontiguousarray(vals[:, s], np.float32))
+           for s in range(n_cols)]
+    np.testing.assert_allclose(
+        hist.groupby_sums(g, f32, e).numpy(),
+        _add_at(gid, vals.astype(np.float32), e, np.float64), rtol=1e-12)
+
+
+@pytest.mark.parametrize("n_slots,n_entries,mode", [
+    (4, 7, 2), (1, 10, 2), (8, 16, 2), (1, 17, 1), (1, 1001, 1),
+    (4, 1981, 1), (1, 25_600, 1), (1, 25_601, 0), (4, 50_000_002, 0)])
+def test_k1_mode(n_slots, n_entries, mode):
+    """Warp-private copies up to 16 entries, one copy per block while it
+    fits in 200 KB, global atomics beyond."""
+    assert hist._k1_mode(n_slots, n_entries) == mode

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 import bench
-from chip_smoke import NULLS_Q, TPCH_Q1, TPCH_Q6, gen_lineitem
+from chip_smoke import NULLS_Q, TPCH_Q1, TPCH_Q6, gen_lineitem, gen_taxi
 from torch_twin import assert_same, twin_sessions
 
 TAXI_ROWS = 20_000
@@ -36,6 +36,15 @@ def _taxi_queries():
              ht["trip_distance"].cast("int32").name("dist")],
             "count").sort(("count", "desc")),
     }
+
+
+def test_smoke_taxi_generator_matches_bench():
+    """chip_smoke.py's own taxi columns equal bench.py's, value and dtype."""
+    ours, theirs = gen_taxi(5000), bench.gen_data(5000)
+    assert list(ours) == list(theirs)
+    for name in ours:
+        assert ours[name].dtype == theirs[name].dtype, name
+        assert np.array_equal(ours[name], theirs[name]), name
 
 
 @pytest.mark.parametrize("q", ["q1", "q2", "q3", "q4"])
