@@ -9,11 +9,14 @@ Phases, each printed as it runs:
   2. build: compiles the CUDA kernels from hdk_tpu_torch/csrc;
   3. kernels: each histogram kernel against its plain PyTorch version on
      the card, at 100M rows and the main path's segment counts (random
-     ids; sorted ids at the sort route's 50M-group buffer; K1 also at
-     TPC-H Q1's and taxi Q2's layouts), each case timed beside its bound
+     ids; sorted ids at the sort route's 50M-group buffer; K1, K3 and K4
+     also at TPC-H Q1's layout, K1 at taxi Q2's), each case timed beside
+     its bound
      (bytes over the device-memory rate), its share of that bound, and
      the one PyTorch call that computes the same function where there is
-     one (``bincount``, ``index_add_``);
+     one (``bincount``, ``index_add_``); ``ms`` is one call between two
+     CUDA events, host time to issue it included, ``batched_ms`` one of
+     ten back-to-back calls;
   4. the main path through the public entry points: taxi Q1-Q4 (builder
      API, 100M rows), TPC-H Q1/Q6 and a scalar subquery (SQL, 60M
      lineitem rows) and a NULL-heavy GROUP BY (SQL, 10M rows), each
@@ -57,8 +60,13 @@ HOLISTIC_ROWS = 10_000_000
 SKETCH_PREFIX_ROWS = 1_000_000
 KERNEL_ROWS = 100_000_000
 REPEATS = 5
-# K1 alone in phase 3: (E, rows, slot kind) of TPC-H Q1 and taxi Q2
-K1_SHAPES = ((7, LINEITEM_ROWS, "float64"), (10, TAXI_ROWS, "float32"))
+# one kernel alone in phase 3 at a main-path layout: (E, rows, kernel,
+# slot kind) of TPC-H Q1 (K1 over 4 float64 sums, K3 over int8
+# l_quantity, K4) and taxi Q2 (K1 over float32 total_amount)
+MAIN_SHAPES = ((7, LINEITEM_ROWS, "groupby_sums", "float64"),
+               (10, TAXI_ROWS, "groupby_sums", "float32"),
+               (7, LINEITEM_ROWS, "seg_sums_exact", "int8"),
+               (7, LINEITEM_ROWS, "count_hist", None))
 
 
 _START = time.perf_counter()
@@ -84,6 +92,13 @@ def gpu_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def cuda_ms_batched(fn, calls: int = 10) -> float:
+    """Device time of ``fn`` per run over ``calls`` back-to-back runs
+    between two events: the host's time to issue a call, which a single
+    run's events also count, hides behind the device's."""
+    return cuda_ms(lambda: [fn() for _ in range(calls)]) / calls
 
 
 def cuda_ms(fn, repeats: int = REPEATS) -> float:
@@ -243,15 +258,16 @@ def kernel_cases(hist):
     ]
 
 
-def kernel_phase(hist, entries, sorted_entries, card, k1_shapes=(),
+def kernel_phase(hist, entries, sorted_entries, card, main_shapes=(),
                  n=KERNEL_ROWS, device="cuda"):
     """Every kernel against its plain version at ``n`` rows: over random
     group ids at each of ``entries`` segments, over sorted ids at each of
-    ``sorted_entries`` (the sort route's buffers), and K1 alone at each
-    (E, rows, slot kind) of ``k1_shapes``.  Random ids are checked with
-    ids beyond both ends (those rows drop out) and timed on ids in
-    [0, E), beside the library call on the same ids.  ``device`` and
-    ``n`` are for a rehearsal on the CPU."""
+    ``sorted_entries`` (the sort route's buffers), and one kernel alone at
+    each (E, rows, kernel, slot kind) of ``main_shapes``. Random ids are
+    checked with ids beyond both ends (those rows drop out) and timed on
+    ids in [0, E), beside the library call on the same ids. ``device`` and
+    ``n`` are for a rehearsal on the CPU.
+    """
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(7)
     slots = {
@@ -274,7 +290,8 @@ def kernel_phase(hist, entries, sorted_entries, card, k1_shapes=(),
     cases = kernel_cases(hist)
     shapes = ([(e, False, n, None) for e in entries]
               + [(e, True, n, None) for e in sorted_entries]
-              + [(e, False, rows, kind) for e, rows, kind in k1_shapes])
+              + [(e, False, rows, (name, kind))
+                 for e, rows, name, kind in main_shapes])
     report = {}
     for e, is_sorted, rows, only in shapes:
         if is_sorted:
@@ -289,7 +306,7 @@ def kernel_phase(hist, entries, sorted_entries, card, k1_shapes=(),
             check_gid = torch.randint(-2, e + 2, (rows,), device=dev,
                                       generator=gen, dtype=torch.int32)
         for name, kind, kern, ref, lib in cases:
-            if only is not None and (name, kind) != ("groupby_sums", only):
+            if only is not None and (name, kind) != only:
                 continue
             v = slots[kind] if kind else None
             if v is not None and rows != n:
@@ -308,6 +325,7 @@ def kernel_phase(hist, entries, sorted_entries, card, k1_shapes=(),
                       f"(max abs err {err})")
             del got, want
             ms = cuda_ms(lambda: kern(gid, v, e))
+            batched_ms = cuda_ms_batched(lambda: kern(gid, v, e))
             plain_ms = cuda_ms(lambda: ref(gid, v, e))
             library_ms = None
             if lib is not None:
@@ -318,13 +336,15 @@ def kernel_phase(hist, entries, sorted_entries, card, k1_shapes=(),
             log(f"kernel {name:15s} slots={kind or '-':8s} N={rows} E={e} "
                 f"{'sorted ' if is_sorted else ''}ok ({tol}) "
                 f"max_abs_err={err!r} kernel_ms={ms!r} "
+                f"batched_ms={batched_ms!r} "
                 f"plain_ms={plain_ms!r} library_ms={library_ms!r} "
                 f"bound_ms={bound!r} share={bound / ms!r} [{card}]")
             rec = report.setdefault(name, {"max_abs_err": 0.0, "cases": []})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             rec["cases"].append({
                 "slots": kind, "S": SLOT_SHAPES[kind][0], "E": e, "N": rows,
-                "sorted": is_sorted, "ms": ms, "plain_ms": plain_ms,
+                "sorted": is_sorted, "ms": ms, "batched_ms": batched_ms,
+                "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound,
                 "share": bound / ms})
         del gid, check_gid
@@ -523,24 +543,27 @@ class EntryRecorder:
     active, read from the launches themselves (``hist._launch``); the
     wrappers and their launch counters are untouched."""
 
-    # kernel entry point prefix -> (wrapper name, position of E in args)
-    ENTRY = (("hdk_count_hist", "count_hist", 2),
-             ("hdk_groupby_sums2_", "groupby_sums2", 4),
-             ("hdk_seg_sums_exact_", "seg_sums_exact", 4),
-             ("hdk_groupby_sums_", "groupby_sums", 4))
+    # kernel entry point prefix -> (wrapper name, position of E in args,
+    # position of the range's first entry or None); K3 and K4 launch over
+    # entries e_lo .. e_lo + E
+    ENTRY = (("hdk_count_hist", "count_hist", 3, 2),
+             ("hdk_groupby_sums2_", "groupby_sums2", 4, None),
+             ("hdk_seg_sums_exact_", "seg_sums_exact", 5, 4),
+             ("hdk_groupby_sums_", "groupby_sums", 4, None))
 
     def __init__(self, hist):
         self.hist = hist
-        self.max_e = {name: 0 for _, name, _ in self.ENTRY}
+        self.max_e = {name: 0 for _, name, _, _ in self.ENTRY}
         self._orig = None
 
     def __enter__(self):
         self._orig = orig = self.hist._launch
 
         def launch(entry, gid, *args):
-            for prefix, name, pos in self.ENTRY:
+            for prefix, name, pos, lo in self.ENTRY:
                 if entry.startswith(prefix):
-                    self.max_e[name] = max(self.max_e[name], int(args[pos]))
+                    e = int(args[pos]) + (0 if lo is None else int(args[lo]))
+                    self.max_e[name] = max(self.max_e[name], e)
                     break
             return orig(entry, gid, *args)
 
@@ -822,6 +845,13 @@ def sketch_exact_check(out, data, executor, what):
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
 
+SOURCES = {
+    "count_hist": "hdk_tpu_torch/csrc/int_hist.cu",
+    "groupby_sums2": "hdk_tpu_torch/csrc/hist.cu",
+    "seg_sums_exact": "hdk_tpu_torch/csrc/int_hist.cu",
+    "groupby_sums": "hdk_tpu_torch/csrc/hist.cu",
+}
+
 REPLACES = {
     "count_hist": "hdk_tpu/ops/pallas_hist2.py:89",
     "groupby_sums2": "hdk_tpu/ops/pallas_groupby.py:180",
@@ -861,9 +891,10 @@ def main() -> None:
     # them entry_count + 1 segments (the last one discards dead rows)
     entries = (11, 12, taxi_q4_entries(taxi) + 1, 65536)
     # HN1's group buffer: 50M keys + a NULL slot, + the discard segment;
-    # K1 alone at TPC-H Q1's (6 groups) and taxi Q2's (9 groups) layouts
+    # K1, K3 and K4 alone at TPC-H Q1's layout (6 groups), K1 at taxi
+    # Q2's (9 groups)
     report = kernel_phase(hist, entries, (HIGH_NDV_KEYS + 2,), card,
-                          k1_shapes=K1_SHAPES)
+                          main_shapes=MAIN_SHAPES)
     torch.cuda.empty_cache()
 
     # phase 4: the main path; counters count its launches only
@@ -902,7 +933,7 @@ def main() -> None:
                   if c["E"] == entries[2] and c["slots"] == kind)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "hdk_tpu_torch/csrc/hist.cu",
+            "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": q4["ms"],
             "plain_ms": q4["plain_ms"], "bound_ms": q4["bound_ms"],

@@ -9,20 +9,17 @@
 // The kernels allocate nothing; the caller zeroes `out`.  Each C entry
 // point returns cudaGetLastError() after the launch.
 //
-// One templated kernel, `hist_kernel`, is instantiated for three of the TPU
-// kernels it replaces in hdk_tpu:
+// `hist_kernel`, a generic scatter-add template, now serves one TPU kernel
+// of hdk_tpu:
 //
-//   hdk_count_hist         ops/pallas_hist2.py::count_hist       no value
-//                          stream, 32-bit shared counters flushed to u64
 //   hdk_groupby_sums2_u8   ops/pallas_groupby.py::groupby_sums2  0/1 slots,
 //                          32-bit shared counters flushed to u64
-//   hdk_seg_sums_exact_*   ops/pallas_hist.py::seg_sums_exact    int8..int64
-//                          slots read at native width, int64 sums (u64
-//                          atomics: two's-complement wrap keeps them exact)
 //
-// What bounds them: device-memory bytes.  One pass over gid (4 B/row) and
-// the slots (L * sizeof(T) B/row, read row-major: vals[r * L + s]); the
-// output is L * E accumulators, slot-major: out[s * E + e].  The TPU kernels turned the scatter-add into
+// (K3 and K4, seg_sums_exact and count_hist, moved to int_hist.cu.)
+//
+// What bounds it: device-memory bytes.  One pass over gid (4 B/row) and
+// the slots (L B/row, read row-major: vals[r * L + s]); the output is
+// L * E accumulators, slot-major: out[s * E + e].  The TPU kernels turned the scatter-add into
 // one-hot matrix products for the MXU.  Here the scatter-add is native: each
 // block keeps an (L x E) partial in shared memory, adds its rows into it with
 // shared-memory atomics, and flushes the non-zero partials to global memory
@@ -30,7 +27,7 @@
 // add straight into global memory.  A small E sends every row of a block to
 // a handful of addresses: correct, but contended.
 //
-// The fourth, K1 (`k1_kernel`, entry points hdk_groupby_sums_cols_{f32,f64},
+// The other, K1 (`k1_kernel`, entry points hdk_groupby_sums_cols_{f32,f64},
 // replacing ops/pallas_groupby.py::groupby_sums), is its own design; see the
 // comment above it.
 
@@ -42,17 +39,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// COUNT has no value stream: every live row adds one.
-struct CountTag {};
-
 // Shared-memory and global accumulator types per value type.
 template <typename T> struct Acc;
-template <> struct Acc<CountTag> { using S = unsigned int; using G = unsigned long long; };
 template <> struct Acc<uint8_t> { using S = unsigned int; using G = unsigned long long; };
-template <> struct Acc<int8_t> { using S = unsigned long long; using G = unsigned long long; };
-template <> struct Acc<int16_t> { using S = unsigned long long; using G = unsigned long long; };
-template <> struct Acc<int32_t> { using S = unsigned long long; using G = unsigned long long; };
-template <> struct Acc<int64_t> { using S = unsigned long long; using G = unsigned long long; };
 
 // One row's addend for one slot, in accumulator type A.
 template <typename T, typename A> struct Addend {
@@ -60,22 +49,6 @@ template <typename T, typename A> struct Addend {
     return static_cast<A>(vals[i]);
   }
 };
-template <typename A> struct Addend<CountTag, A> {
-  __device__ __forceinline__ static A get(const CountTag*, int64_t) { return A(1); }
-};
-// signed integers widen to int64 first, then wrap into u64
-#define HDK_SIGNED_ADDEND(T)                                                  \
-  template <> struct Addend<T, unsigned long long> {                         \
-    __device__ __forceinline__ static unsigned long long get(const T* vals,  \
-                                                             int64_t i) {    \
-      return static_cast<unsigned long long>(static_cast<long long>(vals[i])); \
-    }                                                                         \
-  };
-HDK_SIGNED_ADDEND(int8_t)
-HDK_SIGNED_ADDEND(int16_t)
-HDK_SIGNED_ADDEND(int32_t)
-HDK_SIGNED_ADDEND(int64_t)
-#undef HDK_SIGNED_ADDEND
 
 __device__ __forceinline__ void atomic_add(unsigned int* p, unsigned int v) {
   atomicAdd(p, v);
@@ -436,12 +409,6 @@ int k1_launch(const int32_t* gid, const void* const* ptrs, int64_t n_rows,
 
 extern "C" {
 
-int hdk_count_hist(const int32_t* gid, int64_t n_rows, int64_t n_entries,
-                   unsigned long long* out, int use_shared, void* stream) {
-  return launch<CountTag>(gid, nullptr, n_rows, 1, n_entries, out, use_shared,
-                          static_cast<cudaStream_t>(stream));
-}
-
 int hdk_groupby_sums2_u8(const int32_t* gid, const uint8_t* vals,
                          int64_t n_rows, int64_t n_slots, int64_t n_entries,
                          unsigned long long* out, int use_shared,
@@ -449,20 +416,6 @@ int hdk_groupby_sums2_u8(const int32_t* gid, const uint8_t* vals,
   return launch<uint8_t>(gid, vals, n_rows, n_slots, n_entries, out,
                          use_shared, static_cast<cudaStream_t>(stream));
 }
-
-#define HDK_SEG_SUMS_EXACT(SUFFIX, T)                                          \
-  int hdk_seg_sums_exact_##SUFFIX(const int32_t* gid, const T* vals,          \
-                                  int64_t n_rows, int64_t n_slots,            \
-                                  int64_t n_entries, unsigned long long* out, \
-                                  int use_shared, void* stream) {             \
-    return launch<T>(gid, vals, n_rows, n_slots, n_entries, out, use_shared,  \
-                     static_cast<cudaStream_t>(stream));                      \
-  }
-HDK_SEG_SUMS_EXACT(i8, int8_t)
-HDK_SEG_SUMS_EXACT(i16, int16_t)
-HDK_SEG_SUMS_EXACT(i32, int32_t)
-HDK_SEG_SUMS_EXACT(i64, int64_t)
-#undef HDK_SEG_SUMS_EXACT
 
 #define HDK_GROUPBY_SUMS_COLS(SUFFIX, T)                                       \
   int hdk_groupby_sums_cols_##SUFFIX(const int32_t* gid,                       \

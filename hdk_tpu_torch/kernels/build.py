@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``hdk_tpu_torch/csrc``.
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers: a build takes
-seconds).  The library lands in ``hdk_tpu_torch/_build/``, named by a hash
-of the sources and flags, so an edited source rebuilds at first use and an
-unchanged one loads from disk.  Nothing is built at import time.
+Each source compiles with its own ``nvcc``, all started together, and the
+objects link into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers: a build takes seconds).  The library lands
+in ``hdk_tpu_torch/_build/``, named by a hash of the sources and flags, so
+an edited source rebuilds at first use and an unchanged one loads from
+disk.  Nothing is built at import time.
 
     python -m hdk_tpu_torch.kernels.build [NAME_PART]
 
@@ -31,24 +32,27 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("hist.cu",)
+SOURCES = ("hist.cu", "int_hist.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
-# C entry points of csrc/hist.cu: (gid, [vals,] n_rows, [n_slots,]
-# n_entries, out, use_shared or mode, stream) -> cudaError_t; K1's vals
-# is a host array of column pointers
+_COLS = ctypes.POINTER(_P)  # a host array of column pointers
+# C entry points -> cudaError_t.  csrc/hist.cu: (gid, vals or column
+# pointers, n_rows, n_slots, n_entries, out, use_shared or mode, stream);
+# csrc/int_hist.cu: (gid, [column pointers,] n_rows, [n_slots,] e_lo,
+# n_entries, [out_stride,] out, mode, stream) over the entries e_lo ..
+# e_lo + n_entries of gid
 _SIGNATURES = {
-    "hdk_count_hist": [_P, _I, _I, _P, ctypes.c_int, _P],
-    **{f"hdk_{name}": [_P, _P, _I, _I, _I, _P, ctypes.c_int, _P]
-       for name in ("groupby_sums2_u8", "seg_sums_exact_i8",
-                    "seg_sums_exact_i16", "seg_sums_exact_i32",
-                    "seg_sums_exact_i64")},
+    "hdk_groupby_sums2_u8": [_P, _P, _I, _I, _I, _P, ctypes.c_int, _P],
     **{f"hdk_groupby_sums_cols_{sfx}":
-       [_P, ctypes.POINTER(_P), _I, _I, _I, _P, ctypes.c_int, _P]
+       [_P, _COLS, _I, _I, _I, _P, ctypes.c_int, _P]
        for sfx in ("f32", "f64")},
+    "hdk_count_hist": [_P, _I, _I, _I, _P, ctypes.c_int, _P],
+    **{f"hdk_seg_sums_exact_{sfx}":
+       [_P, _COLS, _I, _I, _I, _I, _I, _P, ctypes.c_int, _P]
+       for sfx in ("i8", "i16", "i32", "i64")},
 }
 
 _lock = threading.Lock()
@@ -74,27 +78,55 @@ def library_path() -> Path:
     return BUILD_DIR / f"hdk_kernels_{h.hexdigest()[:16]}.so"
 
 
+class BuildError(subprocess.CalledProcessError):
+    """A failed nvcc or link step; its message carries the tool's output."""
+
+    def __str__(self) -> str:
+        return f"{super().__str__()}\n{self.stdout or ''}{self.stderr or ''}"
+
+
+def _run(cmd) -> subprocess.CompletedProcess:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise BuildError(proc.returncode, cmd, proc.stdout, proc.stderr)
+    return proc
+
+
+def _compile(out_dir: str, extra=()) -> list:
+    """One ``nvcc -c`` a source, all at once; returns (object path,
+    nvcc's stderr) per source in SOURCES order."""
+    procs = []
+    for name in SOURCES:
+        obj = os.path.join(out_dir, name + ".o")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-c", "-o", obj,
+               str(SRC_DIR / name)]
+        procs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    done = []
+    for obj, cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            for _, _, other in procs:
+                other.kill()
+                other.wait()
+            raise BuildError(proc.returncode, cmd, out, err)
+        done.append((obj, err))
+    return done
+
+
 def build() -> Path:
     """Compile the sources unless a library for them exists; returns its
-    path.  Raises ``subprocess.CalledProcessError`` with nvcc's output on
-    a failed build."""
+    path.  Raises ``BuildError`` (a ``subprocess.CalledProcessError``)
+    with nvcc's output on a failed build."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               *[str(SRC_DIR / s) for s in SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise subprocess.CalledProcessError(
-                proc.returncode, cmd, proc.stdout, proc.stderr)
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [obj for obj, _ in _compile(tmp)]
+        out = os.path.join(tmp, "lib.so")
+        _run([nvcc_path(), "-shared", "-o", out, *objs])
+        os.replace(out, so)
     return so
 
 
@@ -117,24 +149,21 @@ def report(pattern: str = "") -> str:
     """ptxas's resource lines and the SASS atomics of every kernel whose
     mangled name contains ``pattern``; builds into a temporary file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lines = []
+    sass = ""
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        so = os.path.join(tmp, "report.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
-               *[str(SRC_DIR / s) for s in SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=True)
-        lines = []
-        current = None
-        for line in proc.stderr.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                current = m.group(1)
-            if current and pattern in current and (
-                    "registers" in line or "spill" in line
-                    or "Compiling entry" in line):
-                lines.append(line.strip())
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
-                              text=True, check=True).stdout
+        for obj, err in _compile(tmp, ("-Xptxas", "-v")):
+            current = None
+            for line in err.splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    current = m.group(1)
+                if current and pattern in current and (
+                        "registers" in line or "spill" in line
+                        or "Compiling entry" in line):
+                    lines.append(line.strip())
+            sass += _run([cuobjdump, "-sass", obj]).stdout
     func = None
     counts: dict = {}
     for line in sass.splitlines():

@@ -1,7 +1,8 @@
 """Dense-histogram kernels of the perfect-hash GROUP BY.
 
 Four wrappers keep the names of the TPU kernels they replace
-(``hdk_tpu/ops/pallas_*.py``) and launch ``csrc/hist.cu`` on a CUDA tensor:
+(``hdk_tpu/ops/pallas_*.py``) and launch ``csrc/hist.cu`` (K1, K2) or
+``csrc/int_hist.cu`` (K3, K4) on a CUDA tensor:
 
   * ``count_hist``     (K4, pallas_hist2.py)  counts of gid      -> (E,) int64
   * ``groupby_sums2``  (K2, pallas_groupby.py) bool slots       -> (E, S) int64
@@ -23,7 +24,7 @@ launches and nothing else.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -36,6 +37,15 @@ SMEM_LIMIT_BYTES = 200 * 1024
 # block is faster: measured on one H100, PERF.md)
 K1_MAX_COLS = 8
 K1_PRIVATE_MAX_ENTRIES = 16
+
+# K3/K4 (csrc/int_hist.cu::int_hist_kernel): columns per launch; a copy of
+# the partials per lane while S x E is at most INT_LANE_MAX_CELLS, else one
+# per block over at most INT_MAX_RANGES ranges of E that fit in
+# SMEM_LIMIT_BYTES (a launch each), else global atomics (measured on one
+# H100, PERF.md)
+INT_MAX_COLS = 8
+INT_LANE_MAX_CELLS = 64
+INT_MAX_RANGES = 3
 
 _INT_SUFFIX = {torch.int8: "i8", torch.int16: "i16", torch.int32: "i32",
                torch.int64: "i64"}
@@ -87,23 +97,12 @@ def _live(gid: torch.Tensor, n: int) -> torch.Tensor:
     return (gid >= 0) & (gid < n)
 
 
-# -- K4 ---------------------------------------------------------------------
-
-def count_hist_ref(gid: torch.Tensor, n: int) -> torch.Tensor:
-    live = _live(gid, n)
-    return torch.bincount(gid[live].long(), minlength=n)[:n]
-
-
-def count_hist(gid: torch.Tensor, n: int) -> torch.Tensor:
-    """(n,) int64 counts of gid values in [0, n)."""
-    _check_gid(gid)
-    if not _route(gid):
-        return count_hist_ref(gid, n)
-    out = torch.zeros((n,), dtype=torch.int64, device=gid.device)
-    _launch("hdk_count_hist", gid, gid.data_ptr(), gid.shape[0], n,
-            out.data_ptr(), _use_shared(1, n, 4))
-    count_hist.launches += 1
-    return out
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the kernels' 16-byte loads can read it, else a
+    contiguous copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 # -- K2 ---------------------------------------------------------------------
@@ -137,37 +136,125 @@ def groupby_sums2(gid: torch.Tensor, vals: torch.Tensor,
     return out.t()
 
 
-# -- K3 ---------------------------------------------------------------------
+# -- K3 and K4: one integer histogram (csrc/int_hist.cu) -------------------
 
-def seg_sums_exact_ref(gid: torch.Tensor, slots: torch.Tensor,
+def _partial_bytes(dtype) -> int:
+    """Bytes of one partial sum of int_hist_kernel: 32-bit for counts
+    (``dtype`` None), int8 and int16, 64-bit for int32 and int64."""
+    return 8 if dtype in (torch.int32, torch.int64) else 4
+
+
+def _int_span(n_slots: int, dtype) -> int:
+    """Entries of one block-shared (S x E) copy within SMEM_LIMIT_BYTES."""
+    return SMEM_LIMIT_BYTES // (n_slots * _partial_bytes(dtype))
+
+
+def _int_mode(n_slots: int, n_entries: int, dtype=None) -> int:
+    """Where the integer kernel's partials go, for ``n_slots`` columns of
+    ``dtype`` (None: counts): 2 a copy per lane, 1 one copy per block (over
+    several ranges of E when one copy does not fit), 0 global atomics."""
+    if n_slots * n_entries <= INT_LANE_MAX_CELLS:
+        return 2
+    if n_entries <= INT_MAX_RANGES * _int_span(n_slots, dtype):
+        return 1
+    return 0
+
+
+def _int_ranges(mode: int, n_slots: int, n_entries: int,
+                dtype=None) -> List[Tuple[int, int]]:
+    """[lo, hi) entry ranges of a call, one launch each: several only for
+    a block-shared copy larger than shared memory, split evenly."""
+    if mode != 1:
+        return [(0, n_entries)]
+    span = _int_span(n_slots, dtype)
+    k = -(-n_entries // span)
+    width = -(-n_entries // k)
+    return [(lo, min(lo + width, n_entries))
+            for lo in range(0, n_entries, width)]
+
+
+def count_hist_ref(gid: torch.Tensor, n: int) -> torch.Tensor:
+    live = _live(gid, n)
+    return torch.bincount(gid[live].long(), minlength=n)[:n]
+
+
+def count_hist(gid: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int64 counts of gid values in [0, n)."""
+    _check_gid(gid)
+    if not _route(gid):
+        return count_hist_ref(gid, n)
+    out = torch.zeros((n,), dtype=torch.int64, device=gid.device)
+    if gid.shape[0] == 0 or n == 0:
+        return out
+    gid = _aligned(gid)
+    mode = _int_mode(1, n)
+    for lo, hi in _int_ranges(mode, 1, n):
+        _launch("hdk_count_hist", gid, gid.data_ptr(), gid.shape[0], lo,
+                hi - lo, out.data_ptr() + 8 * lo, mode)
+        count_hist.launches += 1
+    return out
+
+
+def _int_columns(gid: torch.Tensor, slots) -> List[torch.Tensor]:
+    """K3's columns: the 1-D columns of a list, or views of the columns
+    of an (N, L) tensor; one integer dtype, one length."""
+    if isinstance(slots, torch.Tensor):
+        _check_rows(gid, slots)
+        cols = list(slots.unbind(1))
+    else:
+        cols = list(slots)
+        if not cols:
+            raise ValueError("seg_sums_exact takes at least one column")
+        for c in cols:
+            if c.dim() != 1 or c.shape[0] != gid.shape[0]:
+                raise ValueError(f"column {tuple(c.shape)} does not match "
+                                 f"{gid.shape[0]} rows")
+    dtype = cols[0].dtype if cols else slots.dtype
+    if dtype not in _INT_SUFFIX or any(c.dtype != dtype for c in cols):
+        raise ValueError(f"seg_sums_exact takes int8..int64 columns of one "
+                         f"dtype, got {sorted({str(c.dtype) for c in cols})}")
+    return cols
+
+
+def seg_sums_exact_ref(gid: torch.Tensor, slots,
                        n_entries: int) -> torch.Tensor:
+    vals = (slots if isinstance(slots, torch.Tensor)
+            else torch.stack(list(slots), 1))
     live = _live(gid, n_entries)
-    out = torch.zeros((n_entries, slots.shape[1]), dtype=torch.int64,
+    out = torch.zeros((n_entries, vals.shape[1]), dtype=torch.int64,
                       device=gid.device)
-    out.index_add_(0, gid[live].long(), slots[live].to(torch.int64))
+    out.index_add_(0, gid[live].long(), vals[live].to(torch.int64))
     return out.t()
 
 
-def seg_sums_exact(gid: torch.Tensor, slots: torch.Tensor,
-                   n_entries: int) -> torch.Tensor:
-    """(L, n_entries) int64 per-gid sums of (N, L) integer slots, each
-    read at its own width (int8, int16, int32 or int64)."""
+def seg_sums_exact(gid: torch.Tensor, slots, n_entries: int) -> torch.Tensor:
+    """(L, n_entries) int64 per-gid sums of L integer columns of one dtype
+    (int8, int16, int32 or int64), each read at its own width where it
+    lies: an (N, L) tensor, whose columns are taken as views, or a list
+    of L 1-D tensors (a misaligned or strided column is copied first).  Up
+    to ``INT_MAX_COLS`` columns a launch.  Sums wrap like int64 addition."""
     _check_gid(gid)
-    _check_rows(gid, slots)
-    suffix = _INT_SUFFIX.get(slots.dtype)
-    if suffix is None:
-        raise ValueError(f"seg_sums_exact takes int8..int64 slots, got "
-                         f"{slots.dtype}")
-    if not _route(gid, slots):
+    cols = _int_columns(gid, slots)
+    if not _route(gid, *cols):
         return seg_sums_exact_ref(gid, slots, n_entries)
-    slots = slots.contiguous()
-    n_slots = slots.shape[1]
-    out = torch.zeros((n_slots, n_entries), dtype=torch.int64,
+    dtype = cols[0].dtype
+    out = torch.zeros((len(cols), n_entries), dtype=torch.int64,
                       device=gid.device)
-    _launch(f"hdk_seg_sums_exact_{suffix}", gid, gid.data_ptr(),
-            slots.data_ptr(), gid.shape[0], n_slots, n_entries,
-            out.data_ptr(), _use_shared(n_slots, n_entries, 8))
-    seg_sums_exact.launches += 1
+    if gid.shape[0] == 0 or n_entries == 0:
+        return out
+    gid = _aligned(gid)
+    cols = [_aligned(c) for c in cols]
+    entry = f"hdk_seg_sums_exact_{_INT_SUFFIX[dtype]}"
+    for s0 in range(0, len(cols), INT_MAX_COLS):
+        chunk = cols[s0:s0 + INT_MAX_COLS]
+        ptrs = (ctypes.c_void_p * len(chunk))(*[c.data_ptr() for c in chunk])
+        mode = _int_mode(len(chunk), n_entries, dtype)
+        for lo, hi in _int_ranges(mode, len(chunk), n_entries, dtype):
+            # out[s0, lo:], the first sum this launch writes
+            first = out.data_ptr() + 8 * (s0 * n_entries + lo)
+            _launch(entry, gid, gid.data_ptr(), ptrs, gid.shape[0],
+                    len(chunk), lo, hi - lo, n_entries, first, mode)
+            seg_sums_exact.launches += 1
     return out
 
 
@@ -195,14 +282,6 @@ def _k1_mode(n_slots: int, n_entries: int) -> int:
     if n_entries <= K1_PRIVATE_MAX_ENTRIES:
         return 2
     return int(n_slots * n_entries * 8 <= SMEM_LIMIT_BYTES)
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself where the kernel's 16-byte loads can read it, else a
-    contiguous copy."""
-    if t.is_contiguous() and t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
 
 
 def groupby_sums_ref(gid: torch.Tensor, cols: Sequence[torch.Tensor],

@@ -61,16 +61,17 @@ def seg_sums(columns: Sequence[torch.Tensor], gid: torch.Tensor, n: int,
         for i in ones_ids:
             out[i] = counts
     for (kind, _dtype), idx in _group(columns, set(ones_ids)).items():
-        if kind == "float":  # K1 reads the columns where they lie
-            sums = hist.groupby_sums(gid, [columns[i] for i in idx], n).t()
+        cols = [columns[i] for i in idx]
+        # K1 and K3 read the columns where they lie
+        if kind == "float":
+            sums = hist.groupby_sums(gid, cols, n).t()
+        elif kind == "int":
+            sums = hist.seg_sums_exact(gid, cols, n)
         else:
             # one column is a view, several are stacked (N, S) in one copy
-            slots = (columns[idx[0]].reshape(-1, 1) if len(idx) == 1
-                     else torch.stack([columns[i] for i in idx], dim=1))
-            if kind == "bool":
-                sums = hist.groupby_sums2(gid, slots, n).t()
-            else:
-                sums = hist.seg_sums_exact(gid, slots, n)
+            slots = (cols[0].reshape(-1, 1) if len(cols) == 1
+                     else torch.stack(cols, dim=1))
+            sums = hist.groupby_sums2(gid, slots, n).t()
         for j, i in enumerate(idx):
             out[i] = sums[j]
     return out  # type: ignore[return-value]

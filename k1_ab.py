@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""K1 (``groupby_sums``) of one source tree of hdk_tpu_torch, timed on
-one CUDA card, for comparing two trees in one call.
+"""One histogram kernel of one source tree of hdk_tpu_torch, timed on one
+CUDA card, for comparing two trees in one call.
 
-    python3 k1_ab.py --tree DIR [--label NAME]
+    python3 k1_ab.py --tree DIR [--label NAME] [--kernel k1|k3|k4] [--sweep]
+
+``--kernel k1`` (the default) times K1, ``groupby_sums``:
 
 Imports ``hdk_tpu_torch`` from DIR (a checkout, or ``git archive`` of
 another commit) and, on data made by this repository's chip_smoke.py:
@@ -28,6 +30,20 @@ times instead every K1 mode (``kernels/hist.py::_k1_mode``: where the
 warps' sums go, and whether they match gids) at the main path's K1
 shapes, each checked against ``index_add_``; a mode whose shared memory
 does not fit is reported as null.
+
+``--kernel k3`` (``seg_sums_exact``) and ``--kernel k4`` (``count_hist``)
+time the integer kernel the same way at the main path's shapes (K3: TPC-H
+Q1's int8 l_quantity at E = 7, the nulls query's int64 x at E = 1001, two
+int64 columns at E = 1981, HN1's sorted ids at E = 50,000,002, E = 65536;
+K4: E = 7, taxi Q3's 37, taxi Q4's 1981, 1001, 65536 and sorted 50M), each
+checked bit for bit against the plain version, beside ``seg_sums`` on the
+columns (any stacking included), and the warm latency of TPC-H Q1, taxi
+Q3, the nulls query, HN1 and TPC-H Q6 (no kernel: a control;
+``--no-queries`` leaves them out); ``host_us`` is the host's
+time to issue one call.  ``kernel_ms`` times one call between two CUDA
+events, ``kernel_ms_batched`` one of ten back-to-back calls.  With
+``--sweep`` they time every mode of ``kernels/hist.py::_int_mode`` (a tree
+that has it) instead.
 """
 
 from __future__ import annotations
@@ -62,6 +78,12 @@ def cuda_ms(fn, repeats: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_batched(fn, calls: int = 10, repeats: int = 5) -> float:
+    """Median device time of ``calls`` back-to-back runs of ``fn``, per
+    run: the host's time to issue a call hides behind the device's."""
+    return cuda_ms(lambda: [fn() for _ in range(calls)], repeats) / calls
 
 
 def kernel_rows(hist, onehot):
@@ -168,6 +190,178 @@ def warm_latency(run) -> dict:
             "warm_runs_ms": [w * 1e3 for w in warm]}
 
 
+# (label, E, rows, column dtype or None for K4, columns, sorted ids)
+INT_SHAPES = {
+    "k3": (("tpch_q1", 7, 60_000_000, torch.int8, 1, False),
+           ("e11_i8", 11, 100_000_000, torch.int8, 1, False),
+           ("nulls", 1001, 10_000_000, torch.int64, 1, False),
+           ("e1981_i64x2", 1981, 100_000_000, torch.int64, 2, False),
+           ("e65536_i64", 65536, 100_000_000, torch.int64, 1, False),
+           ("sorted_50M", 50_000_002, 100_000_000, torch.int64, 1, True)),
+    "k4": (("tpch_q1", 7, 60_000_000, None, 1, False),
+           ("taxi_q3", 37, 100_000_000, None, 1, False),
+           ("nulls", 1001, 10_000_000, None, 1, False),
+           ("taxi_q4", 1981, 100_000_000, None, 1, False),
+           ("e65536", 65536, 100_000_000, None, 1, False),
+           ("sorted_50M", 50_000_002, 100_000_000, None, 1, True)),
+}
+INT_SWEEP = {
+    "k3": (("tpch_q1", 7, 60_000_000, torch.int8, 1, False),
+           *[(f"e{e}_i8", e, 100_000_000, torch.int8, 1, False)
+             for e in (11, 16, 37, 64, 128, 1001, 1981, 65536)],
+           *[(f"e{e}_i64", e, 100_000_000, torch.int64, 1, False)
+             for e in (7, 11, 37, 64, 128, 1001, 1981, 65536)],
+           ("e7_i64x2", 7, 100_000_000, torch.int64, 2, False),
+           ("e1981_i64x2", 1981, 100_000_000, torch.int64, 2, False),
+           ("sorted_runs_1000_i64", 1000, 100_000_000, torch.int64, 1, True),
+           ("sorted_50M_i64", 50_000_002, 100_000_000, torch.int64, 1,
+            True)),
+    "k4": (("tpch_q1", 7, 60_000_000, None, 1, False),
+           *[(f"e{e}", e, 100_000_000, None, 1, False)
+             for e in (11, 16, 24, 37, 64, 128, 256, 1001, 1981, 65536)],
+           ("sorted_runs_1000", 1000, 100_000_000, None, 1, True),
+           ("sorted_50M", 50_000_002, 100_000_000, None, 1, True)),
+}
+INT_MODES = (2, 1, 0)
+
+
+def _int_data(gen, e, n, dtype, n_cols, is_sorted):
+    dev = torch.device("cuda")
+    gid = torch.randint(0, e, (n,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    if is_sorted:
+        gid = torch.sort(gid).values
+    if dtype is None:
+        return gid, []
+    lo, hi = (1, 51) if dtype == torch.int8 else (-10**12, 10**12)
+    return gid, [torch.randint(lo, hi, (n,), device=dev, generator=gen,
+                               dtype=dtype) for _ in range(n_cols)]
+
+
+def _int_call(hist, gid, cols, e):
+    """The kernel on the input its interface takes: the columns
+    themselves for a tree whose K3 takes a list, else an (N, S) tensor (a
+    view for one column, made beforehand for several)."""
+    if not cols:
+        return lambda: hist.count_hist(gid, e)
+    if hasattr(hist, "INT_MAX_COLS"):
+        arg = cols
+    else:
+        arg = cols[0][:, None] if len(cols) == 1 else torch.stack(cols, 1)
+    return lambda: hist.seg_sums_exact(gid, arg, e)
+
+
+def _int_want(hist, gid, cols, e):
+    if not cols:
+        return hist.count_hist_ref(gid, e)
+    return hist.seg_sums_exact_ref(gid, torch.stack(cols, 1), e)
+
+
+def int_kernel_rows(hist, onehot, kernel):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for label, e, n, dtype, n_cols, is_sorted in INT_SHAPES[kernel]:
+        gid, cols = _int_data(gen, e, n, dtype, n_cols, is_sorted)
+        call = _int_call(hist, gid, cols, e)
+        ok = bool(torch.equal(call(), _int_want(hist, gid, cols, e)))
+        if cols:
+            seg = lambda: onehot.seg_sums(cols, gid, e)
+        else:
+            ones = torch.ones_like(gid, dtype=torch.bool)
+            seg = lambda: onehot.seg_sums([ones], gid, e, ones_ids=[0])
+        rows.append({
+            "shape": label, "E": e, "N": n, "S": len(cols),
+            "dtype": str(dtype).replace("torch.", ""), "sorted": is_sorted,
+            "ok": ok, "kernel_ms": cuda_ms(call),
+            "kernel_ms_batched": cuda_ms_batched(call),
+            "seg_sums_ms": cuda_ms(seg),
+        })
+        print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
+        del gid, cols, call, seg
+        torch.cuda.empty_cache()
+    return rows
+
+
+def host_us(hist, kernel, calls: int = 500) -> float:
+    """Host time to issue one call of the wrapper (1024 rows, E = 7),
+    in microseconds: the device keeps up, so the host clock reads the
+    Python, ctypes and CUDA API time of a call."""
+    gid = torch.randint(0, 7, (1024,), device="cuda", dtype=torch.int32)
+    cols = torch.ones((1024, 1), device="cuda", dtype=torch.int8)
+    call = ((lambda: hist.count_hist(gid, 7)) if kernel == "k4"
+            else (lambda: hist.seg_sums_exact(gid, cols, 7)))
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def int_sweep_rows(hist, kernel):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    chosen = hist._int_mode
+    rows = []
+    try:
+        for label, e, n, dtype, n_cols, is_sorted in INT_SWEEP[kernel]:
+            gid, cols = _int_data(gen, e, n, dtype, n_cols, is_sorted)
+            want = _int_want(hist, gid, cols, e)
+            for mode in INT_MODES:
+                hist._int_mode = lambda s, e, d=None, _m=mode: _m
+                row = {"shape": label, "E": e, "N": n, "S": len(cols),
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "mode": mode, "chosen": chosen(max(len(cols), 1), e,
+                                                      dtype) == mode,
+                       "launches": len(hist._int_ranges(
+                           mode, max(len(cols), 1), e, dtype))}
+                call = (lambda: hist.count_hist(gid, e)) if not cols else (
+                    lambda: hist.seg_sums_exact(gid, cols, e))
+                try:
+                    got = call()
+                    torch.cuda.synchronize()
+                except RuntimeError as exc:  # shared memory does not fit
+                    row.update(ms=None, ok=None, error=str(exc))
+                    rows.append(row)
+                    continue
+                row["ok"] = bool(torch.equal(got, want))
+                del got
+                row["ms"] = cuda_ms(call)
+                row["ms_batched"] = cuda_ms_batched(call)
+                rows.append(row)
+                print(json.dumps(row), file=sys.stderr, flush=True)
+            del gid, cols, want
+            torch.cuda.empty_cache()
+    finally:
+        hist._int_mode = chosen
+    return rows
+
+
+def int_query_rows(mod, cs):
+    hdk = mod.HDK(device="cuda")
+    t = mod.types
+    ht = hdk.import_pydict(cs.gen_taxi(cs.TAXI_ROWS), name="trips", schema={
+        "pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)})
+    year = lambda: ht["pickup_datetime"].extract("year").name("y")
+    out = {"taxi_q3": warm_latency(
+        lambda: ht.agg(["passenger_count", year()], "count").run())}
+    hdk.drop_table("trips")
+    hdk.import_pydict(cs.gen_lineitem(cs.LINEITEM_ROWS), name="lineitem",
+                      schema={"l_shipdate": t.timestamp(t.TimeUnit.SECOND,
+                                                        False)})
+    out["tpch_q1"] = warm_latency(lambda: hdk.sql(cs.TPCH_Q1))
+    out["tpch_q6"] = warm_latency(lambda: hdk.sql(cs.TPCH_Q6))  # no kernel
+    hdk.drop_table("lineitem")
+    hdk.import_pydict(cs.gen_nulls(cs.NULLS_ROWS), name="t")
+    out["nulls"] = warm_latency(lambda: hdk.sql(cs.NULLS_Q))
+    hdk.drop_table("t")
+    nt = hdk.import_pydict(cs.gen_high_ndv(cs.HIGH_NDV_ROWS,
+                                           cs.HIGH_NDV_KEYS), name="ndv_t")
+    out["HN1"] = warm_latency(lambda: nt.agg("k", "count", "sum(v)").run())
+    hdk.drop_table("ndv_t")
+    return out
+
+
 def query_rows(mod, cs):
     hdk = mod.HDK(device="cuda")
     t = mod.types
@@ -191,6 +385,9 @@ def main() -> None:
     ap.add_argument("--tree", required=True)
     ap.add_argument("--label", default="")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--kernel", choices=("k1", "k3", "k4"), default="k1")
+    ap.add_argument("--no-queries", action="store_true",
+                    help="k3/k4: time the kernel alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_ab.py needs a CUDA card")
@@ -211,6 +408,18 @@ def main() -> None:
                       [torch.zeros(8, device="cuda")]
                       if hasattr(hist, "K1_MAX_COLS")
                       else torch.zeros((8, 1), device="cuda"), 2)  # build
+    if args.kernel != "k1":
+        result = {"label": args.label, "tree": tree, "card": cs.gpu_line(),
+                  "kernel": args.kernel}
+        if args.sweep:
+            result["sweep"] = int_sweep_rows(hist, args.kernel)
+        else:
+            result["host_us"] = host_us(hist, args.kernel)
+            result["kernels"] = int_kernel_rows(hist, onehot, args.kernel)
+            if not args.no_queries:
+                result["queries"] = int_query_rows(hdk_tpu_torch, cs)
+        print(json.dumps(result), flush=True)
+        return
     if args.sweep:
         print(json.dumps({"label": args.label, "tree": tree,
                           "card": cs.gpu_line(), "sweep": sweep_rows(hist)}),

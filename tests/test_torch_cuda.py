@@ -26,6 +26,16 @@ def cuda():
     return torch.device("cuda")
 
 
+def _int_launches(n_slots, n_entries, dtype=None):
+    """Launches of one K3/K4 call as the wrapper plans it."""
+    total = 0
+    for s0 in range(0, n_slots, hist.INT_MAX_COLS):
+        s = min(hist.INT_MAX_COLS, n_slots - s0)
+        mode = hist._int_mode(s, n_entries, dtype)
+        total += len(hist._int_ranges(mode, s, n_entries, dtype))
+    return total
+
+
 def _refuse_plain_versions(monkeypatch):
     """From here on, a CUDA tensor must never reach a plain version."""
     for k in hist.KERNELS:
@@ -67,7 +77,10 @@ def test_kernels_match_plain_versions(cuda, n_entries):
                                    rtol=1e-10, atol=0)
     after = hist.launches()
     assert {k: after[k] - before[k] for k in after} == {
-        "count_hist": 1, "groupby_sums2": 1, "seg_sums_exact": 2,
+        "count_hist": _int_launches(1, n_entries),
+        "groupby_sums2": 1,
+        "seg_sums_exact": (_int_launches(2, n_entries, torch.int64)
+                           + _int_launches(1, n_entries, torch.int8)),
         "groupby_sums": 2}
 
 
@@ -254,3 +267,69 @@ def test_sort_route_on_the_card(cuda, monkeypatch):
                 np.testing.assert_allclose(gpu[name], cpu[name], rtol=1e-9)
             else:
                 assert np.array_equal(gpu[name], cpu[name]), name
+
+
+# K3 and K4 (csrc/int_hist.cu) in every mode the wrapper may pick: a copy
+# per lane (2), per block (1, E split into ranges past shared memory) and
+# global atomics (0); at E = 7 with 3 columns, sorted runs, ids beyond
+# both ends, every row at the type's minimum over one entry (the 32-bit
+# partials' row budget), a misaligned odd-length view, 9 columns (two
+# launches), E = 70000 (ranges or global atomics) and sorted ids of ~2
+# rows an entry with ids beyond both ends (the sort route's buffers: many
+# entries a warp step, runs across lanes).  Values span each type's range
+# (int8 negatives; int64 sums that wrap).
+_INT_CASES = [(c, m) for c in ("e7_s3", "sorted_runs", "out_of_range",
+                               "extreme", "ragged", "s9")
+              for m in (2, 1, 0)] + [(c, m) for c in ("split", "sorted_short")
+                                     for m in (1, 0)]
+
+
+@pytest.mark.parametrize("dtype", [None, torch.int8, torch.int16,
+                                   torch.int32, torch.int64],
+                         ids=["count", "i8", "i16", "i32", "i64"])
+@pytest.mark.parametrize("case,mode", _INT_CASES)
+def test_int_hist_every_mode(cuda, monkeypatch, case, mode, dtype):
+    n, n_entries, pad, n_cols = 2_000_003, 7, 0, 3
+    if case == "sorted_runs":
+        n_entries, n_cols = 100, 1  # ~20000-row runs
+    elif case == "out_of_range":
+        pad = 3
+    elif case == "extreme":
+        n, n_entries, n_cols = 3_000_000, 1, 1
+    elif case == "s9":
+        n_cols = 9
+    elif case == "split":
+        n_entries, n_cols = 70_000, 1
+    elif case == "sorted_short":
+        n_entries, n_cols, pad = 1_000_000, 2, 50_000
+    gen = torch.Generator(device=cuda).manual_seed(mode * 100 + len(case))
+    gid = torch.randint(-pad, n_entries + pad, (n,), device=cuda,
+                        generator=gen, dtype=torch.int32)
+    if case in ("sorted_runs", "sorted_short"):
+        gid = torch.sort(gid).values
+    cols = []
+    if dtype is not None:
+        lo, hi = ((-2**62, 2**62) if dtype == torch.int64
+                  else (torch.iinfo(dtype).min, torch.iinfo(dtype).max))
+        for _ in range(n_cols):
+            cols.append(torch.full((n,), torch.iinfo(dtype).min, dtype=dtype,
+                                   device=cuda) if case == "extreme"
+                        else torch.randint(lo, hi, (n,), device=cuda,
+                                           generator=gen, dtype=dtype))
+    if case == "ragged":
+        gid, cols = gid[1:], [c[1:] for c in cols]
+    monkeypatch.setattr(hist, "_int_mode", lambda s, e, d=None: mode)
+    before = hist.launches()
+    if dtype is None:
+        got = hist.count_hist(gid, n_entries)
+        want = hist.count_hist_ref(gid, n_entries)
+        launched = _int_launches(1, n_entries)
+    else:
+        got = hist.seg_sums_exact(gid, cols, n_entries)
+        want = hist.seg_sums_exact_ref(gid, cols, n_entries)
+        launched = _int_launches(n_cols, n_entries, dtype)
+    torch.cuda.synchronize()
+    name = "count_hist" if dtype is None else "seg_sums_exact"
+    assert hist.launches()[name] - before[name] == launched
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    assert torch.equal(got, want)

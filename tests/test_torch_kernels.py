@@ -126,6 +126,128 @@ def test_wide_domain_against_numpy(n_entries):
             _add_at(gid, vals, n_entries, np.float64), rtol=1e-12)
 
 
+@pytest.mark.parametrize("n_entries", [500, 3000])  # direct, factored
+def test_seg_sums_exact_columns_match_pallas(n_entries):
+    """K3 takes its columns where they lie: a list of 1-D columns, or the
+    columns of an (N, L) tensor as views (no copy), each at its own
+    width; both equal the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(n_entries + 1)
+    gid = _gid(rng, 30_000, n_entries)
+    slots = rng.integers(-255, 256, (30_000, 3)).astype(np.int16)
+    want = np.asarray(pallas_hist.seg_sums_exact(
+        jnp.asarray(gid), jnp.asarray(slots, jnp.float32), n_entries,
+        interpret=True)).astype(np.int64)
+    g = torch.from_numpy(gid)
+    wide = torch.from_numpy(slots)
+    views = hist._int_columns(g, wide)
+    assert [c.data_ptr() for c in views] == [
+        wide.data_ptr() + 2 * s for s in range(3)]
+    assert np.array_equal(hist.seg_sums_exact(g, views, n_entries).numpy(),
+                          want)
+    cols = [torch.from_numpy(slots[:, s].astype(np.int32)) for s in range(3)]
+    got = hist.seg_sums_exact(g, cols, n_entries)
+    assert got.dtype == torch.int64 and got.shape == (3, n_entries)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("slots,match", [
+    ([], "at least one"),
+    ([torch.zeros(8)], "int8..int64"),
+    ([torch.zeros(8, dtype=torch.int8), torch.zeros(8, dtype=torch.int16)],
+     "one dtype"),
+    ([torch.zeros(7, dtype=torch.int64)], "does not match"),
+    (torch.zeros((7, 2), dtype=torch.int64), "do not match"),
+    (torch.zeros((8, 2), dtype=torch.bool), "int8..int64"),
+], ids=["empty", "float", "mixed", "short", "2-D short", "bool"])
+def test_seg_sums_exact_rejects_columns(slots, match):
+    gid = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        hist.seg_sums_exact(gid, slots, 4)
+
+
+# -- seg_sums hands K1 and K3 the caller's columns ----------------------------
+
+def test_seg_sums_passes_int_columns_unstacked(monkeypatch):
+    rng = np.random.default_rng(3)
+    n, e = 1000, 9
+    gid = torch.from_numpy(_gid(rng, n, e))
+    cols = [torch.from_numpy(rng.integers(-9, 9, n)),                 # i64
+            torch.from_numpy(rng.random(n) < 0.5),                    # bool
+            torch.from_numpy(rng.integers(-100, 100, n).astype(np.int8)),
+            torch.from_numpy(rng.integers(-2**40, 2**40, n)),         # i64
+            torch.from_numpy(rng.random(n))]                          # f64
+    seen = []
+    real = hist.seg_sums_exact
+
+    def spy(g, int_cols, n_entries):
+        seen.append(int_cols)
+        return real(g, int_cols, n_entries)
+
+    monkeypatch.setattr(hist, "seg_sums_exact", spy)
+    got = onehot.seg_sums(cols, gid, e)
+    # one call per int dtype, each with a list of the caller's own tensors
+    assert len(seen) == 2 and all(isinstance(c, list) for c in seen)
+    by_dtype = {c[0].dtype: c for c in seen}
+    assert [id(c) for c in by_dtype[torch.int64]] == [id(cols[0]),
+                                                      id(cols[3])]
+    assert [id(c) for c in by_dtype[torch.int8]] == [id(cols[2])]
+    g = gid.numpy()
+    for i in (0, 2, 3):
+        assert np.array_equal(
+            got[i].numpy(), _add_at(g, cols[i].numpy()[:, None], e,
+                                    np.int64)[:, 0])
+
+
+# -- what the wrappers launch on the card, read from their plan ------------
+
+def _record_launches(monkeypatch):
+    """Route CPU tensors down the kernel path and record each launch's
+    entry point and arguments instead of calling the library."""
+    calls = []
+    monkeypatch.setattr(hist, "_route", lambda gid, *others: True)
+    monkeypatch.setattr(hist, "_launch",
+                        lambda name, gid, *args: calls.append((name, args)))
+    return calls
+
+
+@pytest.mark.parametrize("n_cols", [1, 8, 9, 17])
+def test_seg_sums_exact_many_columns_take_several_launches(monkeypatch,
+                                                           n_cols):
+    gid = torch.zeros(64, dtype=torch.int32)
+    cols = [torch.zeros(64, dtype=torch.int64) for _ in range(n_cols)]
+    calls = _record_launches(monkeypatch)
+    before = hist.seg_sums_exact.launches
+    out = hist.seg_sums_exact(gid, cols, 5)
+    chunks = [min(8, n_cols - s0) for s0 in range(0, n_cols, 8)]
+    assert [a[3] for _, a in calls] == chunks  # columns a launch
+    assert all(name == "hdk_seg_sums_exact_i64" for name, _ in calls)
+    assert hist.seg_sums_exact.launches - before == len(chunks)
+    # each launch writes from its first column's row of the (L, E) output
+    row = out.stride(0) * out.element_size()
+    assert [a[7] for _, a in calls] == [out.data_ptr() + row * s0
+                                        for s0 in range(0, n_cols, 8)]
+
+
+def test_int_ranges_split_block_shared_copies(monkeypatch):
+    """E past one block-shared copy: one launch per range of entries, each
+    writing from its first entry; the ranges cover E once."""
+    n = 70_000  # 280 KB of 32-bit counters; 560 KB of int64 partials
+    gid = torch.zeros(64, dtype=torch.int32)
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(hist, "_int_mode", lambda s, e, d=None: 1)
+    out = hist.count_hist(gid, n)
+    spans = [(a[2], a[2] + a[3]) for _, a in calls]
+    assert spans == hist._int_ranges(1, 1, n) and len(spans) == 2
+    assert [a[4] for _, a in calls] == [out.data_ptr() + 8 * lo
+                                        for lo, _ in spans]
+    calls.clear()
+    hist.seg_sums_exact(gid, [torch.zeros(64, dtype=torch.int64)], n)
+    spans = [(a[4], a[4] + a[5]) for _, a in calls]
+    assert len(spans) == 3 and spans[0][0] == 0 and spans[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert max(hi - lo for lo, hi in spans) <= hist._int_span(1, torch.int64)
+
+
 # -- seg_sums hands K1 the caller's columns ---------------------------------
 
 def test_seg_sums_passes_float_columns_unstacked(monkeypatch):
@@ -252,3 +374,30 @@ def test_k1_mode(n_slots, n_entries, mode):
     """Warp-private copies up to 16 entries, one copy per block while it
     fits in 200 KB, global atomics beyond."""
     assert hist._k1_mode(n_slots, n_entries) == mode
+
+
+@pytest.mark.parametrize("n_slots,n_entries,dtype,mode", [
+    (1, 7, None, 2), (1, 64, None, 2), (1, 65, None, 1), (1, 1981, None, 1),
+    (1, 65536, None, 1), (1, 153_600, None, 1), (1, 153_601, None, 0),
+    (1, 50_000_002, None, 0), (1, 7, torch.int8, 2), (1, 37, torch.int8, 2),
+    (1, 1001, torch.int16, 1), (1, 64, torch.int64, 2),
+    (1, 65, torch.int64, 1), (1, 65536, torch.int64, 1),
+    (1, 76_800, torch.int64, 1), (1, 76_801, torch.int64, 0),
+    (2, 32, torch.int64, 2), (2, 33, torch.int64, 1), (8, 8, torch.int32, 2),
+    (8, 9, torch.int32, 1)])
+def test_int_mode(n_slots, n_entries, dtype, mode):
+    """A copy per lane up to 64 cells (S x E), one copy per block while E
+    fits in 3 ranges of 200 KB (32-bit partials for counts, int8, int16;
+    64-bit for int32, int64), global atomics beyond."""
+    assert hist._int_mode(n_slots, n_entries, dtype) == mode
+
+
+@pytest.mark.parametrize("n_entries,dtype,ranges", [
+    (1981, None, 1), (51_200, None, 1), (51_201, None, 2), (65536, None, 2),
+    (65536, torch.int64, 3), (153_600, None, 3)])
+def test_int_ranges(n_entries, dtype, ranges):
+    got = hist._int_ranges(1, 1, n_entries, dtype)
+    assert len(got) == ranges and got[0][0] == 0 and got[-1][1] == n_entries
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+    assert max(hi - lo for lo, hi in got) <= hist._int_span(1, dtype)
+    assert hist._int_ranges(0, 1, n_entries, dtype) == [(0, n_entries)]
