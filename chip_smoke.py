@@ -10,7 +10,8 @@ Phases, each printed as it runs:
   3. kernels: each histogram kernel against its plain PyTorch version on
      the card, at 100M rows and the main path's segment counts (random
      ids; sorted ids at the sort route's 50M-group buffer; K1, K3 and K4
-     also at TPC-H Q1's layout, K1 at taxi Q2's), each case timed beside
+     also at TPC-H Q1's layout, K1 at taxi Q2's, K2 at the NULL-heavy
+     query's), each case timed beside
      its bound
      (bytes over the device-memory rate), its share of that bound, and
      the one PyTorch call that computes the same function where there is
@@ -62,11 +63,13 @@ KERNEL_ROWS = 100_000_000
 REPEATS = 5
 # one kernel alone in phase 3 at a main-path layout: (E, rows, kernel,
 # slot kind) of TPC-H Q1 (K1 over 4 float64 sums, K3 over int8
-# l_quantity, K4) and taxi Q2 (K1 over float32 total_amount)
+# l_quantity, K4), taxi Q2 (K1 over float32 total_amount) and the nulls
+# query (K2 over the validity of x and y)
 MAIN_SHAPES = ((7, LINEITEM_ROWS, "groupby_sums", "float64"),
                (10, TAXI_ROWS, "groupby_sums", "float32"),
                (7, LINEITEM_ROWS, "seg_sums_exact", "int8"),
-               (7, LINEITEM_ROWS, "count_hist", None))
+               (7, LINEITEM_ROWS, "count_hist", None),
+               (1001, NULLS_ROWS, "groupby_sums2", "bool"))
 
 
 _START = time.perf_counter()
@@ -231,8 +234,8 @@ def bound_ms(n: int, kind, e: int) -> float:
 
 def kernel_cases(hist):
     """(name, slot kind, kernel, plain version, one PyTorch call computing
-    the same function or None).  K1 takes a list of 1-D columns; the other
-    kernels an (N, S) tensor.  The library call is timed on in-range ids
+    the same function or None).  K1 and K2 take a list of 1-D columns, K3
+    an (N, S) tensor.  The library call is timed on in-range ids
     (gids in [0, E), what the group-by hands the kernels), where
     ``bincount`` and ``index_add_`` compute the same function; K2, K3 over
     int8 and K1 over float32 have none (the slot type differs from the
@@ -271,7 +274,10 @@ def kernel_phase(hist, entries, sorted_entries, card, main_shapes=(),
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(7)
     slots = {
-        "bool": torch.rand((n, 2), device=dev, generator=gen) < 0.9,
+        # K2's columns, one tensor each, as the group-by hands it the
+        # validity of two nullable columns
+        "bool": [torch.rand((n,), device=dev, generator=gen) < 0.9
+                 for _ in range(2)],
         "int8": torch.randint(1, 51, (n, 1), device=dev, generator=gen,
                               dtype=torch.int8),
         "int64": torch.randint(-10**12, 10**12, (n, 1), device=dev,
@@ -544,10 +550,10 @@ class EntryRecorder:
     wrappers and their launch counters are untouched."""
 
     # kernel entry point prefix -> (wrapper name, position of E in args,
-    # position of the range's first entry or None); K3 and K4 launch over
-    # entries e_lo .. e_lo + E
+    # position of the range's first entry or None); K2, K3 and K4 launch
+    # over entries e_lo .. e_lo + E
     ENTRY = (("hdk_count_hist", "count_hist", 3, 2),
-             ("hdk_groupby_sums2_", "groupby_sums2", 4, None),
+             ("hdk_groupby_sums2_", "groupby_sums2", 5, 4),
              ("hdk_seg_sums_exact_", "seg_sums_exact", 5, 4),
              ("hdk_groupby_sums_", "groupby_sums", 4, None))
 
@@ -847,7 +853,7 @@ REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
 
 SOURCES = {
     "count_hist": "hdk_tpu_torch/csrc/int_hist.cu",
-    "groupby_sums2": "hdk_tpu_torch/csrc/hist.cu",
+    "groupby_sums2": "hdk_tpu_torch/csrc/int_hist.cu",
     "seg_sums_exact": "hdk_tpu_torch/csrc/int_hist.cu",
     "groupby_sums": "hdk_tpu_torch/csrc/hist.cu",
 }
@@ -892,7 +898,7 @@ def main() -> None:
     entries = (11, 12, taxi_q4_entries(taxi) + 1, 65536)
     # HN1's group buffer: 50M keys + a NULL slot, + the discard segment;
     # K1, K3 and K4 alone at TPC-H Q1's layout (6 groups), K1 at taxi
-    # Q2's (9 groups)
+    # Q2's (9 groups), K2 at the nulls query's (1000 groups)
     report = kernel_phase(hist, entries, (HIGH_NDV_KEYS + 2,), card,
                           main_shapes=MAIN_SHAPES)
     torch.cuda.empty_cache()

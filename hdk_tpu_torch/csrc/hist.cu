@@ -1,35 +1,17 @@
-// Dense-histogram kernels of the perfect-hash GROUP BY, for Hopper (sm_90a).
+// K1 of the perfect-hash GROUP BY, for Hopper (sm_90a): per-gid float64
+// sums of float columns.
 //
-// Each kernel computes
+//     out[s, e] = sum of column s over the rows r with gid[r] == e
 //
-//     out[s, e] = sum of slot s over the rows r with gid[r] == e
-//
-// for slots s < L and entries 0 <= e < E.  Rows whose gid lies outside
+// for columns s < S and entries 0 <= e < E.  Rows whose gid lies outside
 // [0, E), negative included, are skipped: there are no dead-row sentinels.
-// The kernels allocate nothing; the caller zeroes `out`.  Each C entry
+// The kernel allocates nothing; the caller zeroes `out`.  Each C entry
 // point returns cudaGetLastError() after the launch.
 //
-// `hist_kernel`, a generic scatter-add template, now serves one TPU kernel
-// of hdk_tpu:
+//   hdk_groupby_sums_cols_{f32,f64}   ops/pallas_groupby.py::groupby_sums
 //
-//   hdk_groupby_sums2_u8   ops/pallas_groupby.py::groupby_sums2  0/1 slots,
-//                          32-bit shared counters flushed to u64
-//
-// (K3 and K4, seg_sums_exact and count_hist, moved to int_hist.cu.)
-//
-// What bounds it: device-memory bytes.  One pass over gid (4 B/row) and
-// the slots (L B/row, read row-major: vals[r * L + s]); the output is
-// L * E accumulators, slot-major: out[s * E + e].  The TPU kernels turned the scatter-add into
-// one-hot matrix products for the MXU.  Here the scatter-add is native: each
-// block keeps an (L x E) partial in shared memory, adds its rows into it with
-// shared-memory atomics, and flushes the non-zero partials to global memory
-// with atomics.  When L * E accumulators do not fit in shared memory, rows
-// add straight into global memory.  A small E sends every row of a block to
-// a handful of addresses: correct, but contended.
-//
-// The other, K1 (`k1_kernel`, entry points hdk_groupby_sums_cols_{f32,f64},
-// replacing ops/pallas_groupby.py::groupby_sums), is its own design; see the
-// comment above it.
+// The integer histograms, K2 (bool counts), K3 (exact integer sums) and K4
+// (counts), are one kernel of their own in int_hist.cu.
 
 #include <cuda_runtime.h>
 
@@ -37,110 +19,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// Shared-memory and global accumulator types per value type.
-template <typename T> struct Acc;
-template <> struct Acc<uint8_t> { using S = unsigned int; using G = unsigned long long; };
-
-// One row's addend for one slot, in accumulator type A.
-template <typename T, typename A> struct Addend {
-  __device__ __forceinline__ static A get(const T* vals, int64_t i) {
-    return static_cast<A>(vals[i]);
-  }
-};
-
-__device__ __forceinline__ void atomic_add(unsigned int* p, unsigned int v) {
-  atomicAdd(p, v);
-}
-__device__ __forceinline__ void atomic_add(unsigned long long* p,
-                                           unsigned long long v) {
-  atomicAdd(p, v);
-}
 __device__ __forceinline__ void atomic_add(double* p, double v) {
   atomicAdd(p, v);
-}
-
-template <typename T, bool kShared>
-__global__ void __launch_bounds__(kThreads)
-    hist_kernel(const int32_t* __restrict__ gid, const T* __restrict__ vals,
-                int64_t n_rows, int n_slots, int64_t n_entries,
-                typename Acc<T>::G* __restrict__ out) {
-  using S = typename Acc<T>::S;
-  using G = typename Acc<T>::G;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* acc = reinterpret_cast<S*>(smem_raw);
-  const int64_t cells = n_entries * n_slots;
-  if (kShared) {
-    for (int64_t i = threadIdx.x; i < cells; i += blockDim.x) acc[i] = S(0);
-    __syncthreads();
-  }
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       r < n_rows; r += stride) {
-    const int32_t g = gid[r];
-    if (g < 0 || g >= n_entries) continue;
-    for (int s = 0; s < n_slots; ++s) {
-      const int64_t vi = r * n_slots + s;
-      if (kShared) {
-        const S v = Addend<T, S>::get(vals, vi);
-        if (v != S(0)) atomic_add(&acc[s * n_entries + g], v);
-      } else {
-        const G v = Addend<T, G>::get(vals, vi);
-        if (v != G(0)) atomic_add(&out[s * n_entries + g], v);
-      }
-    }
-  }
-  if (kShared) {
-    __syncthreads();
-    for (int64_t i = threadIdx.x; i < cells; i += blockDim.x) {
-      const S v = acc[i];
-      if (v != S(0)) atomic_add(&out[i], static_cast<G>(v));
-    }
-  }
-}
-
-template <typename T>
-int launch(const int32_t* gid, const T* vals, int64_t n_rows, int64_t n_slots,
-           int64_t n_entries, typename Acc<T>::G* out, int use_shared,
-           cudaStream_t stream) {
-  if (n_rows <= 0 || n_slots <= 0 || n_entries <= 0) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int64_t wanted = (n_rows + kThreads - 1) / kThreads;
-  // a 32-bit shared counter must not see 2^32 rows: keep every block under
-  // 2^31 rows of the grid-stride loop
-  const int64_t at_least = (n_rows + (int64_t(1) << 31) - 1) >> 31;
-  int64_t grid = 0;
-  size_t smem = 0;
-  if (use_shared) {
-    smem = static_cast<size_t>(n_slots * n_entries) * sizeof(typename Acc<T>::S);
-    err = cudaFuncSetAttribute(hist_kernel<T, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, hist_kernel<T, true>, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    grid = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  } else {
-    grid = static_cast<int64_t>(sms) * 16;
-  }
-  if (grid > wanted) grid = wanted;
-  if (grid < at_least) grid = at_least;
-  if (use_shared) {
-    hist_kernel<T, true><<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
-        gid, vals, n_rows, static_cast<int>(n_slots), n_entries, out);
-  } else {
-    hist_kernel<T, false><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-        gid, vals, n_rows, static_cast<int>(n_slots), n_entries, out);
-  }
-  return cudaGetLastError();
 }
 
 // -- K1: per-gid float64 sums of float columns --------------------------------
@@ -151,10 +31,10 @@ int launch(const int32_t* gid, const T* vals, int64_t n_rows, int64_t n_slots,
 // dropped.  The mechanism is Hopper's.
 //
 // What bounds it: bytes, 4 + S * sizeof(T) per row read once, plus 8 * S * E
-// written.  The template above loses to contention instead: at E = 7 or 10
-// every lane of every warp adds into a handful of shared addresses, and its
-// rows are read row-major, so the caller stacks the columns into an (N, S)
-// copy first.  This kernel:
+// written.  The first, generic histogram template lost to contention
+// instead: at E = 7 or 10 every lane of every warp added into a handful of
+// shared addresses, and it read rows row-major, so the caller stacked the
+// columns into an (N, S) copy first.  This kernel:
 //   * reads the caller's columns where they lie: up to kMaxCols pointers in a
 //     by-value parameter struct (more columns take several launches);
 //   * loads 16 bytes a lane (an int4 of gid, a float4 or two double2 of each
@@ -168,7 +48,7 @@ int launch(const int32_t* gid, const T* vals, int64_t n_rows, int64_t n_slots,
 //     gids); the copies merge once at the end of the block and flush to
 //     global memory with atomics.  Larger E shares one copy per block
 //     (shared atomics), and beyond shared memory the writes go to global
-//     memory (atomics), as the template does.
+//     memory (atomics).
 // Where warps rarely hold equal gids (random ids over many entries), the
 // match costs more than the writes it saves.  So with shared or global
 // atomics a warp step first asks whether any lane's gid equals its lower
@@ -404,18 +284,9 @@ int k1_launch(const int32_t* gid, const void* const* ptrs, int64_t n_rows,
   }
 }
 
-
 }  // namespace
 
 extern "C" {
-
-int hdk_groupby_sums2_u8(const int32_t* gid, const uint8_t* vals,
-                         int64_t n_rows, int64_t n_slots, int64_t n_entries,
-                         unsigned long long* out, int use_shared,
-                         void* stream) {
-  return launch<uint8_t>(gid, vals, n_rows, n_slots, n_entries, out,
-                         use_shared, static_cast<cudaStream_t>(stream));
-}
 
 #define HDK_GROUPBY_SUMS_COLS(SUFFIX, T)                                       \
   int hdk_groupby_sums_cols_##SUFFIX(const int32_t* gid,                       \

@@ -1,5 +1,5 @@
 // Integer histograms of the perfect-hash GROUP BY, for Hopper (sm_90a):
-// K4 and K3 of hdk_tpu, one kernel.
+// K4, K3 and K2 of hdk_tpu, one kernel.
 //
 //   hdk_count_hist           hdk_tpu/ops/pallas_hist2.py::count_hist
 //                            out[e] = rows with gid == e
@@ -7,6 +7,9 @@
 //                            hdk_tpu/ops/pallas_hist.py::seg_sums_exact
 //                            out[s, e] = int64 sum of column s over the
 //                            rows with gid == e
+//   hdk_groupby_sums2_b8     hdk_tpu/ops/pallas_groupby.py::groupby_sums2
+//                            out[s, e] = rows with gid == e whose bool
+//                            column s is true
 //
 // Rows whose gid lies outside [0, E), negative included, drop out.  Sums
 // wrap like int64 addition (u64 two's-complement adds), so they are exact
@@ -14,17 +17,19 @@
 // MXU contractions with f32 or int32 accumulators, E <= 4096 and N < 2^24
 // a call; none of those limits applies here.  K4 is K3 with an implicit
 // column of ones: `int_hist_kernel<CountTag, 1, mode>` reads gid alone.
+// K2 is K3 over 0/1 bytes (`int_hist_kernel<uint8_t, S, mode>`): a bool
+// column is read as bytes, any nonzero byte counting one.
 //
 // What bounds them: device-memory bytes, 4 B of gid plus each column at
-// its own width per row, read once; 8 B per output sum.  The generic template
-// (hist.cu::hist_kernel, still K2's) read 4 B of gid a thread, the slots
-// row-major from a stacked (N, S) copy, and sent one atomic per row and
-// slot to a handful of shared addresses at small E.  This kernel follows
+// its own width per row, read once; 8 B per output sum.  The first,
+// generic template (K2's until it moved here) read 4 B of gid a thread, the
+// slots row-major from a stacked (N, S) copy, and sent one atomic per row
+// and slot to a handful of shared addresses at small E.  This kernel follows
 // K1's design (hist.cu::k1_kernel) with what integers allow:
 //   * 16 bytes of gid a lane (4 rows, 128 rows a warp step) and each
-//     column's 4 values at their width (int8: 4 B, int16: 8 B, int32:
-//     16 B, int64: 2 x 16 B), streaming loads, from up to kMaxCols column
-//     pointers passed by value: the caller's columns, never stacked;
+//     column's 4 values at their width (bool and int8: 4 B, int16: 8 B,
+//     int32: 16 B, int64: 2 x 16 B), streaming loads, from up to kMaxCols
+//     column pointers passed by value: the caller's columns, never stacked;
 //   * a run of equal gids inside a lane's 4 rows adds up in registers;
 //   * where the partials go (the wrapper picks from S, E and the type):
 //       kLanePrivate    a copy per lane in shared memory, laid out so that
@@ -42,18 +47,21 @@
 //     The atomic modes match lanes only where a lane's gid equals its
 //     lower neighbour's (sorted ids, a handful of entries): one vote
 //     tells.  Then __match_any_sync groups the lanes and the lowest peer
-//     adds the group's total alone: for counts popc(peers & ballot(bit b
-//     of the run lengths)) << b over 3 bits, for values a shuffle tree.
+//     adds the group's total alone: for counts and bools (a lane's run
+//     sums to 0..4) popc(peers & ballot(bit b of the run's sum)) << b
+//     over 3 bits, one ballot triple a slot; for other values a shuffle
+//     tree.
 //     In global mode a warp step whose 128 gids do not decrease (the sort
 //     route's buffers, ~2 rows a gid) instead carries each gid's sum
 //     across lanes with a segmented scan and issues one add per distinct
 //     gid from consecutive lanes, so that a RED covers consecutive
 //     entries (add_sorted_step; on one H100 this cut K4 over 50M sorted
 //     entries from 0.86 to 0.67 ms: PERF.md).
-//   * Partials are 32-bit for counts, int8 and int16: each copy sees at
-//     most INT32_MAX / max|v| rows (the launcher raises the grid to keep
-//     under it), so no 32-bit partial overflows before it is sign-extended
-//     into the u64 flush.  int32 and int64 columns keep 64-bit partials.
+//   * Partials are 32-bit for counts, bools, int8 and int16: each copy
+//     sees at most INT32_MAX / max|v| rows (the launcher raises the grid to
+//     keep under it), so no 32-bit partial overflows before it is
+//     sign-extended into the u64 flush.  int32 and int64 columns keep
+//     64-bit partials.
 // Every block stays resident (or, under a row budget, as many as it takes)
 // and walks the tiles, so its shared copy is zeroed and flushed once.
 
@@ -79,6 +87,11 @@ struct CountTag {};
 // 32-bit partial.
 template <typename T> struct Traits;
 template <> struct Traits<CountTag> {
+  using P = unsigned;
+  static constexpr long long kMaxAbs = 1;
+};
+// bool columns as bytes: 0 or 1 a row, the row budget of counts
+template <> struct Traits<uint8_t> {
   using P = unsigned;
   static constexpr long long kMaxAbs = 1;
 };
@@ -122,7 +135,15 @@ __device__ __forceinline__ unsigned long long widen(unsigned long long p) {
   return p;
 }
 
-// four consecutive values of a column, sign-extended into partial type
+// four consecutive values of a column, sign-extended into partial type;
+// a bool byte counts one when nonzero
+__device__ __forceinline__ void load4(const uint8_t* p, unsigned (&v)[4]) {
+  const uchar4 q = __ldcs(reinterpret_cast<const uchar4*>(p));
+  v[0] = q.x != 0;
+  v[1] = q.y != 0;
+  v[2] = q.z != 0;
+  v[3] = q.w != 0;
+}
 __device__ __forceinline__ void load4(const int8_t* p, unsigned (&v)[4]) {
   const char4 q = __ldcs(reinterpret_cast<const char4*>(p));
   v[0] = static_cast<unsigned>(static_cast<int>(q.x));
@@ -155,6 +176,7 @@ __device__ __forceinline__ void load4(const int64_t* p,
   v[3] = static_cast<unsigned long long>(b.y);
 }
 
+__device__ __forceinline__ unsigned one(const uint8_t* p) { return *p != 0; }
 __device__ __forceinline__ unsigned one(const int8_t* p) {
   return static_cast<unsigned>(static_cast<int>(*p));
 }
@@ -272,6 +294,8 @@ __global__ void __launch_bounds__(threads_of<T, S, kMode>())
                     int64_t n_rows, int e_lo, int n_entries,
                     int64_t out_stride, unsigned long long* __restrict__ out) {
   constexpr bool kCount = std::is_same<T, CountTag>::value;
+  // 0/1 values (counts, bools): group totals by ballots, not shuffles
+  constexpr bool kUnit = Traits<T>::kMaxAbs == 1;
   constexpr int kThreads = threads_of<T, S, kMode>();
   constexpr int kWarps = kThreads / 32;
   using P = typename Traits<T>::P;
@@ -372,12 +396,15 @@ __global__ void __launch_bounds__(threads_of<T, S, kMode>())
         }
         const unsigned peers = __match_any_sync(kFull, key);
         P x[S];
-        if constexpr (kCount) {
-          // run lengths are 1..4: the group's count, bit by bit
-          const unsigned c = v[0][j];
-          x[0] = __popc(peers & __ballot_sync(kFull, c & 1u)) +
-                 2u * __popc(peers & __ballot_sync(kFull, c & 2u)) +
-                 4u * __popc(peers & __ballot_sync(kFull, c & 4u));
+        if constexpr (kUnit) {
+          // a lane's run sums to 0..4: the group's total, bit by bit
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const unsigned c = v[s][j];
+            x[s] = __popc(peers & __ballot_sync(kFull, c & 1u)) +
+                   2u * __popc(peers & __ballot_sync(kFull, c & 2u)) +
+                   4u * __popc(peers & __ballot_sync(kFull, c & 4u));
+          }
         } else {
           // shuffle tree: each lane adds the value of its next remaining
           // peer above it; a lane whose rank among its peers is odd at a
@@ -566,5 +593,15 @@ HDK_SEG_SUMS_EXACT(i16, int16_t)
 HDK_SEG_SUMS_EXACT(i32, int32_t)
 HDK_SEG_SUMS_EXACT(i64, int64_t)
 #undef HDK_SEG_SUMS_EXACT
+
+// K2: bool columns (bytes 0 or 1), counts of true per entry
+int hdk_groupby_sums2_b8(const int32_t* gid, const void* const* cols,
+                         int64_t n_rows, int64_t n_slots, int64_t e_lo,
+                         int64_t n_entries, int64_t out_stride,
+                         unsigned long long* out, int mode, void* stream) {
+  return launch<uint8_t>(gid, cols, n_rows, n_slots, e_lo, n_entries,
+                         out_stride, out, mode,
+                         static_cast<cudaStream_t>(stream));
+}
 
 }  // extern "C"

@@ -39,20 +39,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _COLS = ctypes.POINTER(_P)  # a host array of column pointers
-# C entry points -> cudaError_t.  csrc/hist.cu: (gid, vals or column
-# pointers, n_rows, n_slots, n_entries, out, use_shared or mode, stream);
-# csrc/int_hist.cu: (gid, [column pointers,] n_rows, [n_slots,] e_lo,
-# n_entries, [out_stride,] out, mode, stream) over the entries e_lo ..
-# e_lo + n_entries of gid
+# C entry points -> cudaError_t.  csrc/hist.cu (K1): (gid, column pointers,
+# n_rows, n_slots, n_entries, out, mode, stream); csrc/int_hist.cu (K2-K4):
+# (gid, [column pointers,] n_rows, [n_slots,] e_lo, n_entries,
+# [out_stride,] out, mode, stream) over the entries e_lo .. e_lo +
+# n_entries of gid
+_INT_COLS = [_P, _COLS, _I, _I, _I, _I, _I, _P, ctypes.c_int, _P]
 _SIGNATURES = {
-    "hdk_groupby_sums2_u8": [_P, _P, _I, _I, _I, _P, ctypes.c_int, _P],
     **{f"hdk_groupby_sums_cols_{sfx}":
        [_P, _COLS, _I, _I, _I, _P, ctypes.c_int, _P]
        for sfx in ("f32", "f64")},
     "hdk_count_hist": [_P, _I, _I, _I, _P, ctypes.c_int, _P],
-    **{f"hdk_seg_sums_exact_{sfx}":
-       [_P, _COLS, _I, _I, _I, _I, _I, _P, ctypes.c_int, _P]
+    **{f"hdk_seg_sums_exact_{sfx}": _INT_COLS
        for sfx in ("i8", "i16", "i32", "i64")},
+    "hdk_groupby_sums2_b8": _INT_COLS,
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,8 @@
 """Dense-histogram kernels of the perfect-hash GROUP BY.
 
 Four wrappers keep the names of the TPU kernels they replace
-(``hdk_tpu/ops/pallas_*.py``) and launch ``csrc/hist.cu`` (K1, K2) or
-``csrc/int_hist.cu`` (K3, K4) on a CUDA tensor:
+(``hdk_tpu/ops/pallas_*.py``) and launch ``csrc/hist.cu`` (K1) or
+``csrc/int_hist.cu`` (K2, K3, K4) on a CUDA tensor:
 
   * ``count_hist``     (K4, pallas_hist2.py)  counts of gid      -> (E,) int64
   * ``groupby_sums2``  (K2, pallas_groupby.py) bool slots       -> (E, S) int64
@@ -28,8 +28,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-# (L x E) shared-memory partials above this many bytes add straight into
-# global memory instead (H100: 227 KB per block at most)
+# the most shared memory a block's (S x E) partials may take (H100: 227
+# KB per block at most)
 SMEM_LIMIT_BYTES = 200 * 1024
 
 # K1 (csrc/hist.cu::k1_kernel): columns per launch, and the most entries
@@ -38,7 +38,7 @@ SMEM_LIMIT_BYTES = 200 * 1024
 K1_MAX_COLS = 8
 K1_PRIVATE_MAX_ENTRIES = 16
 
-# K3/K4 (csrc/int_hist.cu::int_hist_kernel): columns per launch; a copy of
+# K2-K4 (csrc/int_hist.cu::int_hist_kernel): columns per launch; a copy of
 # the partials per lane while S x E is at most INT_LANE_MAX_CELLS, else one
 # per block over at most INT_MAX_RANGES ranges of E that fit in
 # SMEM_LIMIT_BYTES (a launch each), else global atomics (measured on one
@@ -89,10 +89,6 @@ def _launch(name: str, gid: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
-def _use_shared(n_slots: int, n_entries: int, acc_bytes: int) -> int:
-    return int(n_slots * n_entries * acc_bytes <= SMEM_LIMIT_BYTES)
-
-
 def _live(gid: torch.Tensor, n: int) -> torch.Tensor:
     return (gid >= 0) & (gid < n)
 
@@ -105,42 +101,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-# -- K2 ---------------------------------------------------------------------
-
-def groupby_sums2_ref(gid: torch.Tensor, vals: torch.Tensor,
-                      n_entries: int) -> torch.Tensor:
-    live = _live(gid, n_entries)
-    out = torch.zeros((n_entries, vals.shape[1]), dtype=torch.int64,
-                      device=gid.device)
-    return out.index_add_(0, gid[live].long(), vals[live].to(torch.int64))
-
-
-def groupby_sums2(gid: torch.Tensor, vals: torch.Tensor,
-                  n_entries: int) -> torch.Tensor:
-    """(n_entries, S) int64 per-gid sums of (N, S) bool slots (counts of
-    True)."""
-    _check_gid(gid)
-    _check_rows(gid, vals)
-    if vals.dtype != torch.bool:
-        raise ValueError(f"groupby_sums2 takes bool slots, got {vals.dtype}")
-    if not _route(gid, vals):
-        return groupby_sums2_ref(gid, vals, n_entries)
-    vals = vals.contiguous().view(torch.uint8)
-    n_slots = vals.shape[1]
-    out = torch.zeros((n_slots, n_entries), dtype=torch.int64,
-                      device=gid.device)
-    _launch("hdk_groupby_sums2_u8", gid, gid.data_ptr(), vals.data_ptr(),
-            gid.shape[0], n_slots, n_entries, out.data_ptr(),
-            _use_shared(n_slots, n_entries, 4))
-    groupby_sums2.launches += 1
-    return out.t()
-
-
-# -- K3 and K4: one integer histogram (csrc/int_hist.cu) -------------------
+# -- K2, K3 and K4: one integer histogram (csrc/int_hist.cu) -------------
 
 def _partial_bytes(dtype) -> int:
     """Bytes of one partial sum of int_hist_kernel: 32-bit for counts
-    (``dtype`` None), int8 and int16, 64-bit for int32 and int64."""
+    (``dtype`` None), bool, int8 and int16, 64-bit for int32 and int64."""
     return 8 if dtype in (torch.int32, torch.int64) else 4
 
 
@@ -195,56 +160,53 @@ def count_hist(gid: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
-def _int_columns(gid: torch.Tensor, slots) -> List[torch.Tensor]:
-    """K3's columns: the 1-D columns of a list, or views of the columns
-    of an (N, L) tensor; one integer dtype, one length."""
+def _slot_columns(name: str, gid: torch.Tensor, slots, what: str,
+                  dtypes) -> List[torch.Tensor]:
+    """The 1-D columns of a list, or views of the columns of an (N, S)
+    tensor; one dtype of ``dtypes`` (``what`` names them), one length."""
     if isinstance(slots, torch.Tensor):
         _check_rows(gid, slots)
         cols = list(slots.unbind(1))
     else:
         cols = list(slots)
         if not cols:
-            raise ValueError("seg_sums_exact takes at least one column")
+            raise ValueError(f"{name} takes at least one column")
         for c in cols:
             if c.dim() != 1 or c.shape[0] != gid.shape[0]:
                 raise ValueError(f"column {tuple(c.shape)} does not match "
                                  f"{gid.shape[0]} rows")
     dtype = cols[0].dtype if cols else slots.dtype
-    if dtype not in _INT_SUFFIX or any(c.dtype != dtype for c in cols):
-        raise ValueError(f"seg_sums_exact takes int8..int64 columns of one "
-                         f"dtype, got {sorted({str(c.dtype) for c in cols})}")
+    if dtype not in dtypes or any(c.dtype != dtype for c in cols):
+        raise ValueError(f"{name} takes {what} columns of one dtype, got "
+                         f"{sorted({str(c.dtype) for c in cols})}")
     return cols
 
 
-def seg_sums_exact_ref(gid: torch.Tensor, slots,
-                       n_entries: int) -> torch.Tensor:
+def _int_sums_ref(gid: torch.Tensor, slots,
+                  n_entries: int) -> torch.Tensor:
+    """(n_entries, S) int64 sums of a list of S columns or an (N, S)
+    tensor, by ``index_add_``."""
     vals = (slots if isinstance(slots, torch.Tensor)
             else torch.stack(list(slots), 1))
     live = _live(gid, n_entries)
     out = torch.zeros((n_entries, vals.shape[1]), dtype=torch.int64,
                       device=gid.device)
-    out.index_add_(0, gid[live].long(), vals[live].to(torch.int64))
-    return out.t()
+    return out.index_add_(0, gid[live].long(), vals[live].to(torch.int64))
 
 
-def seg_sums_exact(gid: torch.Tensor, slots, n_entries: int) -> torch.Tensor:
-    """(L, n_entries) int64 per-gid sums of L integer columns of one dtype
-    (int8, int16, int32 or int64), each read at its own width where it
-    lies: an (N, L) tensor, whose columns are taken as views, or a list
-    of L 1-D tensors (a misaligned or strided column is copied first).  Up
-    to ``INT_MAX_COLS`` columns a launch.  Sums wrap like int64 addition."""
-    _check_gid(gid)
-    cols = _int_columns(gid, slots)
-    if not _route(gid, *cols):
-        return seg_sums_exact_ref(gid, slots, n_entries)
-    dtype = cols[0].dtype
+def _int_hist(entry: str, wrapper, gid: torch.Tensor,
+              cols: List[torch.Tensor], n_entries: int) -> torch.Tensor:
+    """(len(cols), n_entries) int64 sums of ``cols`` (one dtype) by the
+    integer kernel's ``entry``, each column read where it lies (a
+    misaligned or strided one is copied first), up to ``INT_MAX_COLS`` a
+    launch; each launch counts on ``wrapper``."""
+    dtype = cols[0].dtype if cols else None
     out = torch.zeros((len(cols), n_entries), dtype=torch.int64,
                       device=gid.device)
     if gid.shape[0] == 0 or n_entries == 0:
         return out
     gid = _aligned(gid)
     cols = [_aligned(c) for c in cols]
-    entry = f"hdk_seg_sums_exact_{_INT_SUFFIX[dtype]}"
     for s0 in range(0, len(cols), INT_MAX_COLS):
         chunk = cols[s0:s0 + INT_MAX_COLS]
         ptrs = (ctypes.c_void_p * len(chunk))(*[c.data_ptr() for c in chunk])
@@ -254,8 +216,46 @@ def seg_sums_exact(gid: torch.Tensor, slots, n_entries: int) -> torch.Tensor:
             first = out.data_ptr() + 8 * (s0 * n_entries + lo)
             _launch(entry, gid, gid.data_ptr(), ptrs, gid.shape[0],
                     len(chunk), lo, hi - lo, n_entries, first, mode)
-            seg_sums_exact.launches += 1
+            wrapper.launches += 1
     return out
+
+
+def groupby_sums2_ref(gid: torch.Tensor, slots,
+                      n_entries: int) -> torch.Tensor:
+    return _int_sums_ref(gid, slots, n_entries)
+
+
+def groupby_sums2(gid: torch.Tensor, slots, n_entries: int) -> torch.Tensor:
+    """(n_entries, S) int64 per-gid counts of True in S bool columns, read
+    where they lie: a list of S 1-D columns, or an (N, S) tensor whose
+    columns are taken as views.  Up to ``INT_MAX_COLS`` columns a
+    launch."""
+    _check_gid(gid)
+    cols = _slot_columns("groupby_sums2", gid, slots, "bool", (torch.bool,))
+    if not _route(gid, *cols):
+        return groupby_sums2_ref(gid, slots, n_entries)
+    return _int_hist("hdk_groupby_sums2_b8", groupby_sums2, gid, cols,
+                     n_entries).t()
+
+
+def seg_sums_exact_ref(gid: torch.Tensor, slots,
+                       n_entries: int) -> torch.Tensor:
+    return _int_sums_ref(gid, slots, n_entries).t()
+
+
+def seg_sums_exact(gid: torch.Tensor, slots, n_entries: int) -> torch.Tensor:
+    """(L, n_entries) int64 per-gid sums of L integer columns of one dtype
+    (int8, int16, int32 or int64), each read at its own width where it
+    lies: an (N, L) tensor, whose columns are taken as views, or a list
+    of L 1-D tensors (a misaligned or strided column is copied first).  Up
+    to ``INT_MAX_COLS`` columns a launch.  Sums wrap like int64 addition."""
+    _check_gid(gid)
+    cols = _slot_columns("seg_sums_exact", gid, slots, "int8..int64",
+                         _INT_SUFFIX)
+    if not _route(gid, *cols):
+        return seg_sums_exact_ref(gid, slots, n_entries)
+    entry = f"hdk_seg_sums_exact_{_INT_SUFFIX[cols[0].dtype]}"
+    return _int_hist(entry, seg_sums_exact, gid, cols, n_entries)
 
 
 # -- K1 ---------------------------------------------------------------------

@@ -5,7 +5,9 @@ On the TPU these were factored one-hot contractions on the MXU, with 8-bit
 limbs and row chunking to stay exact.  On Hopper a segment sum is a
 histogram: ``seg_sums`` hands each column to the hand-written kernel for
 its kind of slot (``kernels/hist.py``), which sums in int64 or float64 at
-any row count and any segment count:
+any row count and any segment count.  Every kernel reads the caller's
+columns where they lie, one launch for up to 8 columns of one dtype;
+nothing is stacked into an (N, S) copy:
 
   =================  ================================
   slot               kernel
@@ -62,16 +64,12 @@ def seg_sums(columns: Sequence[torch.Tensor], gid: torch.Tensor, n: int,
             out[i] = counts
     for (kind, _dtype), idx in _group(columns, set(ones_ids)).items():
         cols = [columns[i] for i in idx]
-        # K1 and K3 read the columns where they lie
         if kind == "float":
             sums = hist.groupby_sums(gid, cols, n).t()
         elif kind == "int":
             sums = hist.seg_sums_exact(gid, cols, n)
         else:
-            # one column is a view, several are stacked (N, S) in one copy
-            slots = (cols[0].reshape(-1, 1) if len(cols) == 1
-                     else torch.stack(cols, dim=1))
-            sums = hist.groupby_sums2(gid, slots, n).t()
+            sums = hist.groupby_sums2(gid, cols, n).t()
         for j, i in enumerate(idx):
             out[i] = sums[j]
     return out  # type: ignore[return-value]

@@ -2,7 +2,7 @@
 """One histogram kernel of one source tree of hdk_tpu_torch, timed on one
 CUDA card, for comparing two trees in one call.
 
-    python3 k1_ab.py --tree DIR [--label NAME] [--kernel k1|k3|k4] [--sweep]
+    python3 k1_ab.py --tree DIR [--label NAME] [--kernel k1|k2|k3|k4] [--sweep]
 
 ``--kernel k1`` (the default) times K1, ``groupby_sums``:
 
@@ -31,19 +31,23 @@ warps' sums go, and whether they match gids) at the main path's K1
 shapes, each checked against ``index_add_``; a mode whose shared memory
 does not fit is reported as null.
 
-``--kernel k3`` (``seg_sums_exact``) and ``--kernel k4`` (``count_hist``)
-time the integer kernel the same way at the main path's shapes (K3: TPC-H
-Q1's int8 l_quantity at E = 7, the nulls query's int64 x at E = 1001, two
-int64 columns at E = 1981, HN1's sorted ids at E = 50,000,002, E = 65536;
-K4: E = 7, taxi Q3's 37, taxi Q4's 1981, 1001, 65536 and sorted 50M), each
-checked bit for bit against the plain version, beside ``seg_sums`` on the
-columns (any stacking included), and the warm latency of TPC-H Q1, taxi
-Q3, the nulls query, HN1 and TPC-H Q6 (no kernel: a control;
-``--no-queries`` leaves them out); ``host_us`` is the host's
-time to issue one call.  ``kernel_ms`` times one call between two CUDA
-events, ``kernel_ms_batched`` one of ten back-to-back calls.  With
-``--sweep`` they time every mode of ``kernels/hist.py::_int_mode`` (a tree
-that has it) instead.
+``--kernel k3`` (``seg_sums_exact``), ``--kernel k4`` (``count_hist``)
+and ``--kernel k2`` (``groupby_sums2``) time the integer kernel the same
+way at the main path's shapes (K3: TPC-H Q1's int8 l_quantity at E = 7,
+the nulls query's int64 x at E = 1001, two int64 columns at E = 1981,
+HN1's sorted ids at E = 50,000,002, E = 65536; K4: E = 7, taxi Q3's 37,
+taxi Q4's 1981, 1001, 65536 and sorted 50M; K2: two bool columns at
+chip_smoke.py phase 3's E = 11, 12, 1981, 65536 and sorted 50M, and at
+the nulls query's E = 1001 over 10M rows), each checked bit for bit
+against the plain version, beside ``seg_sums`` on the columns (any
+stacking included), and the warm latency of the queries that launch the
+kernel (K3/K4: TPC-H Q1, taxi Q3, the nulls query, HN1, and TPC-H Q6, no
+kernel: a control; K2: the nulls query and holistic Q1 and Q2;
+``--no-queries`` leaves them out); ``host_us`` is the host's time to
+issue one call.  ``kernel_ms`` times one call between two CUDA events,
+``kernel_ms_batched`` one of ten back-to-back calls.  With ``--sweep``
+they time every mode of ``kernels/hist.py::_int_mode`` (a tree whose
+kernel has it) instead.
 """
 
 from __future__ import annotations
@@ -192,6 +196,12 @@ def warm_latency(run) -> dict:
 
 # (label, E, rows, column dtype or None for K4, columns, sorted ids)
 INT_SHAPES = {
+    "k2": (("e11", 11, 100_000_000, torch.bool, 2, False),
+           ("e12", 12, 100_000_000, torch.bool, 2, False),
+           ("taxi_q4_E", 1981, 100_000_000, torch.bool, 2, False),
+           ("e65536", 65536, 100_000_000, torch.bool, 2, False),
+           ("sorted_50M", 50_000_002, 100_000_000, torch.bool, 2, True),
+           ("nulls", 1001, 10_000_000, torch.bool, 2, False)),
     "k3": (("tpch_q1", 7, 60_000_000, torch.int8, 1, False),
            ("e11_i8", 11, 100_000_000, torch.int8, 1, False),
            ("nulls", 1001, 10_000_000, torch.int64, 1, False),
@@ -206,6 +216,11 @@ INT_SHAPES = {
            ("sorted_50M", 50_000_002, 100_000_000, None, 1, True)),
 }
 INT_SWEEP = {
+    "k2": (("nulls", 1001, 10_000_000, torch.bool, 2, False),
+           *[(f"e{e}_b2", e, 100_000_000, torch.bool, 2, False)
+             for e in (11, 32, 33, 1981, 25_600, 65536)],
+           ("sorted_runs_1000_b2", 1000, 100_000_000, torch.bool, 2, True),
+           ("sorted_50M_b2", 50_000_002, 100_000_000, torch.bool, 2, True)),
     "k3": (("tpch_q1", 7, 60_000_000, torch.int8, 1, False),
            *[(f"e{e}_i8", e, 100_000_000, torch.int8, 1, False)
              for e in (11, 16, 37, 64, 128, 1001, 1981, 65536)],
@@ -233,6 +248,9 @@ def _int_data(gen, e, n, dtype, n_cols, is_sorted):
         gid = torch.sort(gid).values
     if dtype is None:
         return gid, []
+    if dtype == torch.bool:
+        return gid, [torch.rand((n,), device=dev, generator=gen) < 0.9
+                     for _ in range(n_cols)]
     lo, hi = (1, 51) if dtype == torch.int8 else (-10**12, 10**12)
     return gid, [torch.randint(lo, hi, (n,), device=dev, generator=gen,
                                dtype=dtype) for _ in range(n_cols)]
@@ -240,10 +258,16 @@ def _int_data(gen, e, n, dtype, n_cols, is_sorted):
 
 def _int_call(hist, gid, cols, e):
     """The kernel on the input its interface takes: the columns
-    themselves for a tree whose K3 takes a list, else an (N, S) tensor (a
-    view for one column, made beforehand for several)."""
+    themselves for a tree whose K2/K3 takes a list, else an (N, S) tensor
+    (a view for one column, made beforehand for several).  A tree whose K2
+    still plans with ``_use_shared`` (the generic template) takes a
+    tensor."""
     if not cols:
         return lambda: hist.count_hist(gid, e)
+    if cols[0].dtype == torch.bool:
+        arg = (torch.stack(cols, 1) if hasattr(hist, "_use_shared")
+               else cols)
+        return lambda: hist.groupby_sums2(gid, arg, e)
     if hasattr(hist, "INT_MAX_COLS"):
         arg = cols
     else:
@@ -254,6 +278,8 @@ def _int_call(hist, gid, cols, e):
 def _int_want(hist, gid, cols, e):
     if not cols:
         return hist.count_hist_ref(gid, e)
+    if cols[0].dtype == torch.bool:
+        return hist.groupby_sums2_ref(gid, torch.stack(cols, 1), e)
     return hist.seg_sums_exact_ref(gid, torch.stack(cols, 1), e)
 
 
@@ -287,9 +313,12 @@ def host_us(hist, kernel, calls: int = 500) -> float:
     in microseconds: the device keeps up, so the host clock reads the
     Python, ctypes and CUDA API time of a call."""
     gid = torch.randint(0, 7, (1024,), device="cuda", dtype=torch.int32)
-    cols = torch.ones((1024, 1), device="cuda", dtype=torch.int8)
-    call = ((lambda: hist.count_hist(gid, 7)) if kernel == "k4"
-            else (lambda: hist.seg_sums_exact(gid, cols, 7)))
+    if kernel == "k4":
+        call = lambda: hist.count_hist(gid, 7)
+    else:
+        dtype = torch.bool if kernel == "k2" else torch.int8
+        cols = [torch.ones((1024,), device="cuda", dtype=dtype)]
+        call = _int_call(hist, gid, cols, 7)
     call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -315,8 +344,7 @@ def int_sweep_rows(hist, kernel):
                                                       dtype) == mode,
                        "launches": len(hist._int_ranges(
                            mode, max(len(cols), 1), e, dtype))}
-                call = (lambda: hist.count_hist(gid, e)) if not cols else (
-                    lambda: hist.seg_sums_exact(gid, cols, e))
+                call = _int_call(hist, gid, cols, e)
                 try:
                     got = call()
                     torch.cuda.synchronize()
@@ -335,6 +363,19 @@ def int_sweep_rows(hist, kernel):
     finally:
         hist._int_mode = chosen
     return rows
+
+
+def k2_query_rows(mod, cs):
+    """Warm latency of the queries that launch K2."""
+    hdk = mod.HDK(device="cuda")
+    hdk.import_pydict(cs.gen_nulls(cs.NULLS_ROWS), name="t")
+    out = {"nulls": warm_latency(lambda: hdk.sql(cs.NULLS_Q))}
+    hdk.drop_table("t")
+    hdk.import_pydict(cs.gen_holistic(cs.HOLISTIC_ROWS), name="h")
+    out["holistic_q1"] = warm_latency(lambda: hdk.sql(cs.HOLISTIC_Q1))
+    out["holistic_q2"] = warm_latency(lambda: hdk.sql(cs.HOLISTIC_Q2))
+    hdk.drop_table("h")
+    return out
 
 
 def int_query_rows(mod, cs):
@@ -385,9 +426,10 @@ def main() -> None:
     ap.add_argument("--tree", required=True)
     ap.add_argument("--label", default="")
     ap.add_argument("--sweep", action="store_true")
-    ap.add_argument("--kernel", choices=("k1", "k3", "k4"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4"),
+                    default="k1")
     ap.add_argument("--no-queries", action="store_true",
-                    help="k3/k4: time the kernel alone")
+                    help="k2/k3/k4: time the kernel alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_ab.py needs a CUDA card")
@@ -417,7 +459,9 @@ def main() -> None:
             result["host_us"] = host_us(hist, args.kernel)
             result["kernels"] = int_kernel_rows(hist, onehot, args.kernel)
             if not args.no_queries:
-                result["queries"] = int_query_rows(hdk_tpu_torch, cs)
+                rows = (k2_query_rows if args.kernel == "k2"
+                        else int_query_rows)
+                result["queries"] = rows(hdk_tpu_torch, cs)
         print(json.dumps(result), flush=True)
         return
     if args.sweep:

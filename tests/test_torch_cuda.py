@@ -27,7 +27,7 @@ def cuda():
 
 
 def _int_launches(n_slots, n_entries, dtype=None):
-    """Launches of one K3/K4 call as the wrapper plans it."""
+    """Launches of one K2/K3/K4 call as the wrapper plans it."""
     total = 0
     for s0 in range(0, n_slots, hist.INT_MAX_COLS):
         s = min(hist.INT_MAX_COLS, n_slots - s0)
@@ -78,7 +78,7 @@ def test_kernels_match_plain_versions(cuda, n_entries):
     after = hist.launches()
     assert {k: after[k] - before[k] for k in after} == {
         "count_hist": _int_launches(1, n_entries),
-        "groupby_sums2": 1,
+        "groupby_sums2": _int_launches(3, n_entries, torch.bool),
         "seg_sums_exact": (_int_launches(2, n_entries, torch.int64)
                            + _int_launches(1, n_entries, torch.int8)),
         "groupby_sums": 2}
@@ -131,8 +131,9 @@ def test_seg_sums_over_sorted_gid(cuda, n_entries):
     got = onehot.seg_sums(cols, gid, n_entries, ones_ids=[0])
     after = hist.launches()
     assert {k: after[k] - before[k] for k in after} == {
-        "count_hist": 1, "groupby_sums2": 1, "seg_sums_exact": 2,
-        "groupby_sums": 1}
+        "count_hist": 1,
+        "groupby_sums2": _int_launches(1, n_entries, torch.bool),
+        "seg_sums_exact": 2, "groupby_sums": 1}
     assert torch.equal(got[0], hist.count_hist_ref(gid, n_entries))
     assert torch.equal(got[1], hist.groupby_sums2_ref(
         gid, cols[1][:, None], n_entries)[:, 0])
@@ -269,24 +270,24 @@ def test_sort_route_on_the_card(cuda, monkeypatch):
                 assert np.array_equal(gpu[name], cpu[name]), name
 
 
-# K3 and K4 (csrc/int_hist.cu) in every mode the wrapper may pick: a copy
+# K2, K3 and K4 (csrc/int_hist.cu) in every mode the wrapper may pick: a copy
 # per lane (2), per block (1, E split into ranges past shared memory) and
 # global atomics (0); at E = 7 with 3 columns, sorted runs, ids beyond
 # both ends, every row at the type's minimum over one entry (the 32-bit
-# partials' row budget), a misaligned odd-length view, 9 columns (two
-# launches), E = 70000 (ranges or global atomics) and sorted ids of ~2
-# rows an entry with ids beyond both ends (the sort route's buffers: many
-# entries a warp step, runs across lanes).  Values span each type's range
-# (int8 negatives; int64 sums that wrap).
+# partials' row budget; every bool true), a misaligned odd-length view, 9
+# columns (two launches), E = 70000 (ranges or global atomics) and sorted
+# ids of ~2 rows an entry with ids beyond both ends (the sort route's
+# buffers: many entries a warp step, runs across lanes).  Values span each
+# type's range (int8 negatives; int64 sums that wrap).
 _INT_CASES = [(c, m) for c in ("e7_s3", "sorted_runs", "out_of_range",
                                "extreme", "ragged", "s9")
               for m in (2, 1, 0)] + [(c, m) for c in ("split", "sorted_short")
                                      for m in (1, 0)]
 
 
-@pytest.mark.parametrize("dtype", [None, torch.int8, torch.int16,
+@pytest.mark.parametrize("dtype", [None, torch.bool, torch.int8, torch.int16,
                                    torch.int32, torch.int64],
-                         ids=["count", "i8", "i16", "i32", "i64"])
+                         ids=["count", "bool", "i8", "i16", "i32", "i64"])
 @pytest.mark.parametrize("case,mode", _INT_CASES)
 def test_int_hist_every_mode(cuda, monkeypatch, case, mode, dtype):
     n, n_entries, pad, n_cols = 2_000_003, 7, 0, 3
@@ -308,7 +309,12 @@ def test_int_hist_every_mode(cuda, monkeypatch, case, mode, dtype):
     if case in ("sorted_runs", "sorted_short"):
         gid = torch.sort(gid).values
     cols = []
-    if dtype is not None:
+    if dtype == torch.bool:
+        for _ in range(n_cols):
+            cols.append(torch.ones((n,), dtype=dtype, device=cuda)
+                        if case == "extreme"
+                        else torch.rand((n,), device=cuda, generator=gen) < 0.5)
+    elif dtype is not None:
         lo, hi = ((-2**62, 2**62) if dtype == torch.int64
                   else (torch.iinfo(dtype).min, torch.iinfo(dtype).max))
         for _ in range(n_cols):
@@ -324,12 +330,58 @@ def test_int_hist_every_mode(cuda, monkeypatch, case, mode, dtype):
         got = hist.count_hist(gid, n_entries)
         want = hist.count_hist_ref(gid, n_entries)
         launched = _int_launches(1, n_entries)
+    elif dtype == torch.bool:
+        got = hist.groupby_sums2(gid, cols, n_entries)
+        want = hist.groupby_sums2_ref(gid, cols, n_entries)
+        launched = _int_launches(n_cols, n_entries, dtype)
     else:
         got = hist.seg_sums_exact(gid, cols, n_entries)
         want = hist.seg_sums_exact_ref(gid, cols, n_entries)
         launched = _int_launches(n_cols, n_entries, dtype)
     torch.cuda.synchronize()
-    name = "count_hist" if dtype is None else "seg_sums_exact"
+    name = {None: "count_hist", torch.bool: "groupby_sums2"}.get(
+        dtype, "seg_sums_exact")
     assert hist.launches()[name] - before[name] == launched
     assert got.dtype == torch.int64 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+# K2 at the modes its own planner picks for two bool columns (the main
+# path's layout): a copy per lane (E = 11), one block-shared copy (E =
+# 1981) or three (E = 65536), global atomics (E = 300000); sorted ids
+# with long runs and with ~2 rows an entry; a ragged row count, one
+# column at an odd offset, and 9 columns (two launches)
+@pytest.mark.parametrize("case,mode", [
+    ("lane", 2), ("block", 1), ("block_3_ranges", 1), ("global", 0),
+    ("sorted_runs", 1), ("sorted_short", 0), ("ragged", 1),
+    ("misaligned", 1), ("s9", 1)])
+def test_groupby_sums2_modes(cuda, case, mode):
+    n, n_entries, n_cols = 4_000_000, 1981, 2
+    n_entries = {"lane": 11, "block_3_ranges": 65536, "global": 300_000,
+                 "sorted_runs": 100, "sorted_short": 2_000_000}.get(
+                     case, n_entries)
+    if case == "ragged":
+        n = 4_000_037
+    elif case == "s9":
+        n_cols = 9
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    gid = torch.randint(-3, n_entries + 3, (n,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    if case.startswith("sorted"):
+        gid = torch.sort(gid).values
+    cols = [torch.rand((n + 1,), device=cuda, generator=gen) < 0.7
+            for _ in range(n_cols)]
+    # a slice at offset 1 is misaligned: the wrapper copies it
+    cols = [c[1:] if case == "misaligned" and i == 0 else c[:n]
+            for i, c in enumerate(cols)]
+    assert hist._int_mode(min(n_cols, 8), n_entries, torch.bool) == mode
+    if case == "block_3_ranges":
+        assert len(hist._int_ranges(mode, 2, n_entries, torch.bool)) == 3
+    before = hist.groupby_sums2.launches
+    got = hist.groupby_sums2(gid, cols, n_entries)
+    want = hist.groupby_sums2_ref(gid, cols, n_entries)
+    torch.cuda.synchronize()
+    assert (hist.groupby_sums2.launches - before
+            == _int_launches(n_cols, n_entries, torch.bool))
+    assert got.dtype == torch.int64 and got.shape == (n_entries, n_cols)
     assert torch.equal(got, want)

@@ -43,16 +43,20 @@ def test_count_hist_matches_pallas(n):
 @pytest.mark.parametrize("n_entries,n_slots", [(50, 1), (1000, 2),
                                                (4096, 4)])
 def test_groupby_sums2_matches_pallas(n_entries, n_slots):
+    """Both interfaces, an (N, S) tensor and a list of S 1-D columns,
+    equal the Pallas kernel in interpret mode."""
     rng = np.random.default_rng(n_entries)
     gid = _gid(rng, 30_000, n_entries)
     vals = rng.random((30_000, n_slots)) < 0.7
     want = np.asarray(pallas_groupby.groupby_sums2(
         jnp.asarray(gid), jnp.asarray(vals, jnp.float32), n_entries,
-        interpret=True))
-    got = hist.groupby_sums2(torch.from_numpy(gid), torch.from_numpy(vals),
-                             n_entries)
+        interpret=True)).astype(np.int64)
+    g = torch.from_numpy(gid)
+    got = hist.groupby_sums2(g, torch.from_numpy(vals), n_entries)
     assert got.dtype == torch.int64 and got.shape == (n_entries, n_slots)
-    assert np.array_equal(got.numpy(), want.astype(np.int64))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(
+        hist.groupby_sums2(g, _columns(vals), n_entries).numpy(), want)
 
 
 @pytest.mark.parametrize("n_entries", [500, 3000])  # direct, factored
@@ -139,7 +143,8 @@ def test_seg_sums_exact_columns_match_pallas(n_entries):
         interpret=True)).astype(np.int64)
     g = torch.from_numpy(gid)
     wide = torch.from_numpy(slots)
-    views = hist._int_columns(g, wide)
+    views = hist._slot_columns("seg_sums_exact", g, wide, "int8..int64",
+                               hist._INT_SUFFIX)
     assert [c.data_ptr() for c in views] == [
         wide.data_ptr() + 2 * s for s in range(3)]
     assert np.array_equal(hist.seg_sums_exact(g, views, n_entries).numpy(),
@@ -163,6 +168,106 @@ def test_seg_sums_exact_rejects_columns(slots, match):
     gid = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match=match):
         hist.seg_sums_exact(gid, slots, 4)
+
+
+# -- K2 takes bool columns where they lie ---------------------------------
+
+@pytest.mark.parametrize("n_cols", [1, 2, 9])
+def test_groupby_sums2_columns(n_cols):
+    """A list of 1-D bool columns equals the (N, S) tensor and numpy, with
+    gids beyond both ends; 9 columns take two chunks on the card, and a
+    column at an odd offset is read as it lies."""
+    rng = np.random.default_rng(n_cols)
+    n, e = 20_000, 37
+    gid = _gid(rng, n, e)
+    flags = rng.random((n, n_cols)) < 0.6
+    want = _add_at(gid, flags, e, np.int64)
+    g = torch.from_numpy(gid)
+    wide = torch.from_numpy(flags)
+    assert np.array_equal(hist.groupby_sums2(g, wide, e).numpy(), want)
+    cols = [wide[:, s] for s in range(n_cols)]
+    got = hist.groupby_sums2(g, cols, e)
+    assert got.dtype == torch.int64 and got.shape == (e, n_cols)
+    assert np.array_equal(got.numpy(), want)
+    shifted = torch.from_numpy(np.concatenate([[False], flags[:, 0]]))[1:]
+    assert np.array_equal(hist.groupby_sums2(g, [shifted], e).numpy(),
+                          want[:, :1])
+
+
+@pytest.mark.parametrize("slots,match", [
+    ([], "at least one"),
+    ([torch.zeros(8, dtype=torch.int8)], "bool"),
+    ([torch.zeros(8, dtype=torch.bool), torch.zeros(8, dtype=torch.uint8)],
+     "one dtype"),
+    ([torch.zeros(7, dtype=torch.bool)], "does not match"),
+    ([torch.zeros((8, 1), dtype=torch.bool)], "does not match"),
+    (torch.zeros((7, 2), dtype=torch.bool), "do not match"),
+    (torch.zeros((8, 2)), "bool"),
+], ids=["empty", "int8", "mixed", "short", "2-D", "2-D short", "float"])
+def test_groupby_sums2_rejects_columns(slots, match):
+    gid = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        hist.groupby_sums2(gid, slots, 4)
+
+
+@pytest.mark.parametrize("n_cols,n_entries", [(2, 11), (2, 1001), (9, 7),
+                                              (2, 65536), (1, 50_000_002)])
+def test_groupby_sums2_launch_plan(monkeypatch, n_cols, n_entries):
+    """K2 launches the integer kernel's bool entry point: up to 8 columns
+    a launch, the mode and entry ranges of 4-byte partials, each launch
+    writing from its first column's and entry's sum of the (S, E)
+    output that it returns transposed."""
+    gid = torch.zeros(64, dtype=torch.int32)
+    cols = [torch.zeros(64, dtype=torch.bool) for _ in range(n_cols)]
+    calls = _record_launches(monkeypatch)
+    before = hist.groupby_sums2.launches
+    out = hist.groupby_sums2(gid, cols, n_entries)
+    assert out.shape == (n_entries, n_cols)
+    plan = []
+    for s0 in range(0, n_cols, 8):
+        s = min(8, n_cols - s0)
+        mode = hist._int_mode(s, n_entries, torch.bool)
+        plan += [(s0, s, lo, hi, mode)
+                 for lo, hi in hist._int_ranges(mode, s, n_entries,
+                                                torch.bool)]
+    assert all(name == "hdk_groupby_sums2_b8" for name, _ in calls)
+    assert [(a[3], a[4], a[4] + a[5], a[8]) for _, a in calls] == [
+        (s, lo, hi, mode) for _, s, lo, hi, mode in plan]
+    assert [a[6] for _, a in calls] == [n_entries] * len(plan)
+    base = out.t().data_ptr()
+    assert [a[7] for _, a in calls] == [base + 8 * (s0 * n_entries + lo)
+                                        for s0, _, lo, _, _ in plan]
+    assert [a[1][:a[3]] for _, a in calls] == [
+        [c.data_ptr() for c in cols[s0:s0 + s]] for s0, s, *_ in plan]
+    assert hist.groupby_sums2.launches - before == len(plan)
+    if (n_cols, n_entries) == (2, 65536):
+        assert [p[4] for p in plan] == [1, 1, 1]  # 3 ranges, block-shared
+
+
+def test_seg_sums_passes_bool_columns_unstacked(monkeypatch):
+    rng = np.random.default_rng(4)
+    n, e = 1000, 9
+    gid = torch.from_numpy(_gid(rng, n, e))
+    cols = [torch.from_numpy(rng.random(n) < 0.5),                    # bool
+            torch.from_numpy(rng.integers(-9, 9, n)),                 # i64
+            torch.from_numpy(rng.random(n) < 0.2)]                    # bool
+    seen = []
+    real = hist.groupby_sums2
+
+    def spy(g, bool_cols, n_entries):
+        seen.append(bool_cols)
+        return real(g, bool_cols, n_entries)
+
+    monkeypatch.setattr(hist, "groupby_sums2", spy)
+    got = onehot.seg_sums(cols, gid, e)
+    # one call, with a list of the caller's own tensors
+    assert len(seen) == 1 and isinstance(seen[0], list)
+    assert [id(c) for c in seen[0]] == [id(cols[0]), id(cols[2])]
+    g = gid.numpy()
+    for i in (0, 2):
+        assert np.array_equal(
+            got[i].numpy(), _add_at(g, cols[i].numpy()[:, None], e,
+                                    np.int64)[:, 0])
 
 
 # -- seg_sums hands K1 and K3 the caller's columns ----------------------------
@@ -377,6 +482,9 @@ def test_k1_mode(n_slots, n_entries, mode):
 
 
 @pytest.mark.parametrize("n_slots,n_entries,dtype,mode", [
+    (2, 11, torch.bool, 2), (2, 32, torch.bool, 2), (2, 33, torch.bool, 1),
+    (2, 1001, torch.bool, 1), (2, 65536, torch.bool, 1),
+    (2, 76_800, torch.bool, 1), (2, 76_801, torch.bool, 0),
     (1, 7, None, 2), (1, 64, None, 2), (1, 65, None, 1), (1, 1981, None, 1),
     (1, 65536, None, 1), (1, 153_600, None, 1), (1, 153_601, None, 0),
     (1, 50_000_002, None, 0), (1, 7, torch.int8, 2), (1, 37, torch.int8, 2),
@@ -387,12 +495,13 @@ def test_k1_mode(n_slots, n_entries, mode):
     (8, 9, torch.int32, 1)])
 def test_int_mode(n_slots, n_entries, dtype, mode):
     """A copy per lane up to 64 cells (S x E), one copy per block while E
-    fits in 3 ranges of 200 KB (32-bit partials for counts, int8, int16;
-    64-bit for int32, int64), global atomics beyond."""
+    fits in 3 ranges of 200 KB (32-bit partials for counts, bool, int8,
+    int16; 64-bit for int32, int64), global atomics beyond."""
     assert hist._int_mode(n_slots, n_entries, dtype) == mode
 
 
 @pytest.mark.parametrize("n_entries,dtype,ranges", [
+    (65536, torch.bool, 2),
     (1981, None, 1), (51_200, None, 1), (51_201, None, 2), (65536, None, 2),
     (65536, torch.int64, 3), (153_600, None, 3)])
 def test_int_ranges(n_entries, dtype, ranges):

@@ -4,7 +4,8 @@ For a database the ingested tables and their string dictionaries play the
 part of a model's weights: both packages ingest one numpy dict through
 ``import_pydict``, and ``twin_sessions`` asserts that they hold the same
 columns, dictionary codes and fragment stats before any query runs.
-Results come back as pandas frames and compare with ``assert_same``.
+Results compare with ``assert_same``, which reads NULLs from the Arrow
+validity bitmaps: in a pandas frame a NULL float and a NaN look alike.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import pandas as pd
+import pyarrow as pa
 
 import hdk_tpu
 import hdk_tpu_torch
@@ -64,31 +66,77 @@ def assert_same_storage(jx, pt) -> None:
                 assert (jx._dicts.get(ca.type.dict_id).all_strings()
                         == pt._dicts.get(cb.type.dict_id).all_strings())
             for frag in a.fragments:
-                assert (astuple(a.stats(ca.info.name, frag))
-                        == astuple(b.stats(cb.info.name, frag))), ca.info.name
+                assert _same_stats(astuple(a.stats(ca.info.name, frag)),
+                                   astuple(b.stats(cb.info.name, frag))), \
+                    ca.info.name
+
+
+def _same_stats(a: tuple, b: tuple) -> bool:
+    """Equal fragment stats, a NaN min or max (a column holding NaN)
+    equal to a NaN."""
+    return len(a) == len(b) and all(
+        x == y or (isinstance(x, float) and isinstance(y, float)
+                   and np.isnan(x) and np.isnan(y)) for x, y in zip(a, b))
+
+
+def _columns(res) -> Dict[str, tuple]:
+    """Per column of a result: (values, NULL flags, pandas dtype).  The
+    flags are the Arrow validity bitmap's; numbers keep their Arrow type
+    (NULLs filled with 0), so integers compare exactly; strings and
+    timestamps come as pandas reads them.  Row order: the result's."""
+    table = res.to_arrow()
+    frame = table.to_pandas()
+    out = {}
+    for name, col in zip(table.column_names, table.columns):
+        nulls = col.is_null().to_numpy()
+        if (pa.types.is_integer(col.type) or pa.types.is_floating(col.type)
+                or pa.types.is_boolean(col.type)):
+            fill = False if pa.types.is_boolean(col.type) else 0
+            values = col.fill_null(fill).to_numpy()
+        else:
+            values = frame[name].to_numpy()
+        out[name] = (values, nulls, frame[name].dtype)
+    return out
+
+
+def _canonical_order(cols: Dict[str, tuple]) -> np.ndarray:
+    """Row order of ``canon`` over the values and the NULL flags."""
+    frame = pd.DataFrame({**{f"v{i}": v for i, (v, _, _) in
+                             enumerate(cols.values())},
+                          **{f"n{i}": n for i, (_, n, _) in
+                             enumerate(cols.values())}})
+    frame["row"] = np.arange(len(frame))
+    return canon(frame)["row"].to_numpy()
 
 
 def assert_same(res_jax, res_torch, ordered: bool = True,
                 f32_avg: Sequence[str] = ()) -> None:
-    """Equal results: keys and counts exactly, float columns to
-    ``F64_RTOL`` (``F32_AVG_RTOL`` for the columns named in
-    ``f32_avg``)."""
-    a = res_jax.to_pandas()
-    b = res_torch.to_pandas()
-    assert list(a.columns) == list(b.columns)
+    """Equal results, column by column: the NULL positions (Arrow
+    validity), then among the valid float values the NaN positions, then
+    the values: keys, counts and integers exactly, floats to ``F64_RTOL``
+    (``F32_AVG_RTOL`` for the columns named in ``f32_avg``)."""
+    a = _columns(res_jax)
+    b = _columns(res_torch)
+    assert list(a) == list(b)
+    rows_a = len(next(iter(a.values()))[0]) if a else 0
+    rows_b = len(next(iter(b.values()))[0]) if b else 0
+    assert rows_a == rows_b, (rows_a, rows_b)
     if not ordered:
-        a, b = canon(a), canon(b)
-    assert len(a) == len(b), (a, b)
-    for c in a.columns:
-        x, y = a[c], b[c]
-        xn, yn = pd.isna(x).to_numpy(), pd.isna(y).to_numpy()
-        assert (xn == yn).all(), f"NULLs differ in {c}"
-        xv, yv = x[~xn].to_numpy(), y[~yn].to_numpy()
+        pa_, pb = _canonical_order(a), _canonical_order(b)
+        a = {c: (v[pa_], n[pa_], d) for c, (v, n, d) in a.items()}
+        b = {c: (v[pb], n[pb], d) for c, (v, n, d) in b.items()}
+    for c in a:
+        (x, xn, xd), (y, yn, yd) = a[c], b[c]
+        assert (xn == yn).all(), f"NULLs differ in {c}: {xn} vs {yn}"
+        xv, yv = x[~xn], y[~yn]
         if xv.dtype.kind == "f" or yv.dtype.kind == "f":
+            xv, yv = xv.astype(np.float64), yv.astype(np.float64)
+            xnan, ynan = np.isnan(xv), np.isnan(yv)
+            assert (xnan == ynan).all(), \
+                f"NaNs differ in {c}: {xv} vs {yv}"
             rtol = F32_AVG_RTOL if c in f32_avg else F64_RTOL
-            np.testing.assert_allclose(yv.astype(np.float64),
-                                       xv.astype(np.float64), rtol=rtol,
+            np.testing.assert_allclose(yv[~ynan], xv[~xnan], rtol=rtol,
                                        atol=0, err_msg=c)
         else:
-            assert x.dtype == y.dtype, (c, x.dtype, y.dtype)
-            assert (xv == yv).all(), f"values differ in {c}:\n{a}\n--\n{b}"
+            assert xd == yd, (c, xd, yd)
+            assert (xv == yv).all(), f"values differ in {c}:\n{xv}\n--\n{yv}"
