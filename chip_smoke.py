@@ -30,14 +30,24 @@ Phases, each printed as it runs:
      MEDIAN over a packed key on the sort route, COUNT DISTINCT and
      QUANTILE on the dense route, HLL and t-digest sketches over a float
      key, and the first query again in a session whose group buffer
-     starts below the group count (one widen-retry).
-Phases 5-6 are the sort route: their kernel launches count apart from
-phase 4's, and every kernel must launch on both.  The line before the
-last is a JSON object with the per-kernel results (every phase-3 case
-under ``cases``); the last line is
+     starts below the group count (one widen-retry);
+  7. joins, in a session of their own: J1 100M probe rows into a 10M-row
+     build and J2 the same with zipf(1.3) probe keys (the perfect
+     route), J3 100M probe rows into 10M build keys spread over
+     [0, 2^40) (the sorted-hash route; INNER and LEFT), J4 TPC-H Q3 (60M
+     lineitem rows; two perfect joins, then the sort-route GROUP BY) and
+     J5 an IN subquery (a SEMI join), each against a numpy oracle, with
+     its route, cold time, median warm latency and rows/s; a warm run
+     that builds a join table again fails.
+Phases 5-6 are the sort route and phase 7 the join path: each phase's
+kernel launches count apart from the others', every kernel must launch
+on phases 4 and 5-6, and the kernels of TPC-H Q3 on phase 7.  The line
+before the last is a JSON object with the per-kernel results (every
+phase-3 case under ``cases``); the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
 non-zero and prints no result.  Needs numpy and torch; imports neither
-jax, pandas nor pyarrow.
+jax, pandas nor pyarrow (but for phase 7's string column, which goes
+through pyarrow where it is installed).
 """
 
 from __future__ import annotations
@@ -165,6 +175,94 @@ def gen_nulls(rows: int):
         "x": np.ma.MaskedArray(x, rng.random(rows) < 0.1),
         "y": np.ma.MaskedArray(y, rng.random(rows) < 0.1),
     }
+
+
+def gen_join(scale: float = 1.0, seed: int = 11):
+    """(trips_j, payments_j) of bench_suite.bench_join (seed 11) and, with
+    ``seed=17``, of bench_zipf_join: 100M probe keys into a 10M-row build
+    whose keys are a permutation of [0, 10M); the zipf(1.3) probe keys are
+    clipped into the build's range."""
+    n_probe = int(100_000_000 * scale)
+    n_build = int(10_000_000 * scale)
+    rng = np.random.default_rng(seed)
+    if seed == 17:
+        k = np.minimum(rng.zipf(1.3, n_probe), n_build).astype(np.int64) - 1
+    else:
+        k = rng.integers(0, n_build, n_probe)
+    trips = {"k": k, "amt": rng.gamma(2.0, 10.0, n_probe).astype(np.float32)}
+    payments = {"k": rng.permutation(n_build),
+                "fee": rng.gamma(1.0, 2.0, n_build).astype(np.float32)}
+    return trips, payments
+
+
+def gen_hash_join(probe_rows: int, build_rows: int):
+    """A join the perfect route refuses: ``build_rows`` distinct even keys
+    over [0, 2^40) (a range far above ``perfect_hash_range_limit``), and
+    ``probe_rows`` probe keys, 90% drawn from the build keys, 10% odd (in
+    no build row) and 1% NULL.  Returns (probe, build, the build row of
+    each probe key, -1 for an odd one): the oracle's matches."""
+    rng = np.random.default_rng(19)
+    u = np.unique(rng.integers(0, 1 << 39, build_rows + build_rows // 8))
+    keys = 2 * rng.permutation(u)[:build_rows]
+    row = rng.integers(0, build_rows, probe_rows)
+    row[rng.random(probe_rows) >= 0.9] = -1
+    k = np.where(row >= 0, keys[row],
+                 2 * rng.integers(0, 1 << 39, probe_rows) + 1)
+    probe = {"k": np.ma.MaskedArray(k, rng.random(probe_rows) < 0.01),
+             "amt": rng.gamma(2.0, 10.0, probe_rows).astype(np.float32)}
+    build = {"k": keys,
+             "fee": rng.gamma(1.0, 2.0, build_rows).astype(np.float32)}
+    return probe, build, row
+
+
+def gen_tpch_q3(scale: float = 1.0):
+    """(customer3, orders3, lineitem3) of bench_suite.bench_tpch_q3 (seed
+    23): 1.5M customers, 15M orders and 60M lineitem rows at scale 1.
+    o_orderdate and l_shipdate are seconds since the epoch (TIMESTAMP(s)
+    NOT NULL, ``Q3_SCHEMA``)."""
+    n_cust = int(1_500_000 * scale)
+    n_ord = int(15_000_000 * scale)
+    n_li = int(60_000_000 * scale)
+    rng = np.random.default_rng(23)
+    seg = np.asarray(["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD",
+                      "MACHINERY"])
+    base = np.int64(694224000)  # 1992-01-01
+    year7 = 7 * 365 * 86400
+    customer = {"c_custkey": np.arange(n_cust, dtype=np.int64),
+                "c_mktsegment": seg[rng.integers(0, 5, n_cust)]}
+    orders = {"o_orderkey": np.arange(n_ord, dtype=np.int64),
+              "o_custkey": rng.integers(0, n_cust, n_ord),
+              "o_orderdate": base + rng.integers(0, year7, n_ord),
+              "o_shippriority": rng.integers(0, 3, n_ord).astype(np.int8)}
+    lineitem = {"l_orderkey": rng.integers(0, n_ord, n_li),
+                "l_extendedprice": rng.gamma(3.0, 12000.0, n_li).astype(
+                    np.float32),
+                "l_discount": np.round(rng.uniform(0.0, 0.1, n_li), 2
+                                       ).astype(np.float32),
+                "l_shipdate": base + rng.integers(0, year7, n_li)}
+    return customer, orders, lineitem
+
+
+def q3_schema(types, table: str):
+    """Declared types of a Q3 table: its timestamps are in seconds."""
+    cols = {"orders3": "o_orderdate", "lineitem3": "l_shipdate"}
+    if table not in cols:
+        return None
+    return {cols[table]: types.timestamp(types.TimeUnit.SECOND, False)}
+
+
+TPCH_Q3 = (
+    "SELECT l_orderkey, SUM(l_extendedprice * (1 - l_discount)) AS revenue, "
+    "o_orderdate, o_shippriority "
+    "FROM customer3, orders3, lineitem3 "
+    "WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey "
+    "AND l_orderkey = o_orderkey "
+    "AND o_orderdate < TIMESTAMP '1995-03-15 00:00:00' "
+    "AND l_shipdate > TIMESTAMP '1995-03-15 00:00:00' "
+    "GROUP BY l_orderkey, o_orderdate, o_shippriority "
+    "ORDER BY revenue DESC, o_orderdate LIMIT 10")
+J5_IN = ("SELECT COUNT(*), SUM(amt) FROM trips_j "
+         "WHERE k IN (SELECT k FROM payments_j WHERE fee > 4.0)")
 
 
 def epoch(ts: str) -> int:
@@ -847,6 +945,155 @@ def sketch_exact_check(out, data, executor, what):
         f"groups")
 
 
+# -- phase 7: joins -------------------------------------------------------
+
+def join_query(run, card, label, rows, hist, executor, route, want=()):
+    """Cold run (checked for its route and the kernels it must launch),
+    then three warm runs that must build no join table again; logs the
+    cold time, the median warm latency and rows/s."""
+    before = hist.launches()
+    builds0 = executor._join_builds
+    t0 = time.perf_counter()
+    res = run()
+    res.block()
+    cold = time.perf_counter() - t0
+    got_route = executor._join_route
+    check(got_route == route, f"{label}: route {got_route}, want {route}")
+    used = {k: hist.launches()[k] - before[k] for k in before}
+    for k in want:
+        check(used[k] > 0, f"{label}: kernel {k} never launched ({used})")
+    builds = executor._join_builds - builds0
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run().block()
+        warm.append(time.perf_counter() - t0)
+    check(executor._join_builds == builds0 + builds,
+          f"{label}: a warm run built a join table again")
+    lat = statistics.median(warm)
+    log(f"join {label}: route={got_route} rows={rows} cold_s={cold!r} "
+        f"warm_latency_s={lat!r} rows_per_s={rows / lat!r} "
+        f"cold_builds={builds} warm_builds=0 launches={used} [{card}]")
+    return res
+
+
+def drop_tables(hdk, *names):
+    """Drop tables and their columns' device copies (a dropped table's
+    copies stay in the device cache until its budget evicts them)."""
+    for name in names:
+        for col in hdk._schema.get(name).columns:
+            col.drop_device_cache()
+        hdk.drop_table(name)
+
+
+def join_phase(hdk_mod, card, hist, device="cuda", scale=1.0,
+               hash_rows=(100_000_000, 10_000_000),
+               want_q3=("groupby_sums",)):
+    """J1-J5 in a session of their own, each against a numpy oracle:
+    counts and keys exactly, sums of float32 values to rtol 1e-6."""
+    hdk = hdk_mod.HDK(device=device)
+    ex = hdk._executor
+
+    # J1: 100M probe rows into a 10M-row build (bench_suite.bench_join)
+    trips, payments = gen_join(scale, seed=11)
+    n_probe = trips["k"].size
+    fee_of = np.empty(payments["k"].size, np.float64)
+    fee_of[payments["k"]] = payments["fee"]
+    tj = hdk.import_pydict(trips, name="trips_j")
+    pj = hdk.import_pydict(payments, name="payments_j")
+    res = join_query(lambda: tj.join(pj, "k", "k").agg([], "count",
+                                                        "sum(fee)").run(),
+                     card, "J1", n_probe, hist, ex, "perfect")
+    count, fee = res.to_numpy().values()
+    equal(count, [n_probe], "J1 count")
+    close(fee, [fee_of[trips["k"]].sum()], 1e-6, "J1 sum(fee)")
+
+    # J5: an IN subquery over J1's tables (a SEMI join)
+    res = join_query(lambda: hdk.sql(J5_IN), card, "J5", n_probe, hist, ex,
+                     "perfect")
+    count, amt = res.to_numpy().values()
+    in_set = np.zeros(payments["k"].size, bool)
+    in_set[payments["k"][payments["fee"].astype(np.float64) > 4.0]] = True
+    sel = in_set[trips["k"]]
+    equal(count, [int(sel.sum())], "J5 count")
+    close(amt, [trips["amt"][sel].astype(np.float64).sum()], 1e-6, "J5 sum")
+    del sel, in_set
+    drop_tables(hdk, "trips_j", "payments_j")
+
+    # J2: zipf(1.3) probe keys (bench_suite.bench_zipf_join)
+    trips, payments = gen_join(scale, seed=17)
+    fee_of[payments["k"]] = payments["fee"]
+    tz = hdk.import_pydict(trips, name="trips_z")
+    pz = hdk.import_pydict(payments, name="payments_z")
+    res = join_query(lambda: tz.join(pz, "k", "k").agg([], "count",
+                                                        "sum(fee)").run(),
+                     card, "J2", n_probe, hist, ex, "perfect")
+    count, fee = res.to_numpy().values()
+    equal(count, [n_probe], "J2 count")
+    close(fee, [fee_of[trips["k"]].sum()], 1e-6, "J2 sum(fee)")
+    del trips, payments, fee_of
+    drop_tables(hdk, "trips_z", "payments_z")
+
+    # J3: the sorted-hash route (build keys spread over [0, 2^40))
+    probe, build, row = gen_hash_join(*hash_rows)
+    th = hdk.import_pydict(probe, name="probe_h")
+    bh = hdk.import_pydict(build, name="build_h")
+    found = (row >= 0) & ~np.ma.getmaskarray(probe["k"])
+    fee_sum = build["fee"][row[found]].astype(np.float64).sum()
+    res = join_query(lambda: th.join(bh, "k", "k").agg([], "count",
+                                                        "sum(fee)").run(),
+                     card, "J3_inner", hash_rows[0], hist, ex, "hash")
+    count, fee = res.to_numpy().values()
+    equal(count, [int(found.sum())], "J3 inner count")
+    close(fee, [fee_sum], 1e-6, "J3 inner sum(fee)")
+    res = join_query(lambda: th.join(bh, "k", "k", how="left").agg(
+        [], "count", "count(fee)").run(), card, "J3_left", hash_rows[0],
+        hist, ex, "hash")
+    count, n_fee = res.to_numpy().values()
+    equal(count, [hash_rows[0]], "J3 left count(*)")
+    equal(count - n_fee, [hash_rows[0] - int(found.sum())],
+          "J3 left NULL fee count")
+    del probe, build, row, found
+    drop_tables(hdk, "probe_h", "build_h")
+
+    # J4: TPC-H Q3 (bench_suite.bench_tpch_q3)
+    tables = dict(zip(("customer3", "orders3", "lineitem3"),
+                      gen_tpch_q3(scale)))
+    for name, data in tables.items():
+        hdk.import_pydict(data, name=name,
+                          schema=q3_schema(hdk_mod.types, name))
+    res = join_query(lambda: hdk.sql(TPCH_Q3), card, "J4_tpch_q3",
+                     tables["lineitem3"]["l_orderkey"].size, hist, ex,
+                     "perfect", want=want_q3)
+    out = res.to_numpy()
+    top, revenue, orders = q3_oracle(*tables.values())
+    equal(out["l_orderkey"], top, "J4 l_orderkey")
+    close(out["revenue"], revenue, 1e-6, "J4 revenue")
+    equal(out["o_orderdate"], orders["o_orderdate"][top], "J4 o_orderdate")
+    equal(out["o_shippriority"], orders["o_shippriority"][top],
+          "J4 o_shippriority")
+    drop_tables(hdk, *tables)
+
+
+def q3_oracle(customer, orders, lineitem):
+    """(l_orderkey, revenue) of TPC-H Q3's ten rows, and the orders table:
+    the product in float32 as the engine computes it, summed in float64;
+    ties of revenue keep the earlier order date."""
+    cut = epoch("1995-03-15T00:00:00")
+    cust_ok = customer["c_mktsegment"] == "BUILDING"
+    ord_ok = (orders["o_orderdate"] < cut) & cust_ok[orders["o_custkey"]]
+    lk = lineitem["l_orderkey"]
+    li_ok = (lineitem["l_shipdate"] > cut) & ord_ok[lk]
+    rev = (lineitem["l_extendedprice"][li_ok]
+           * (np.float32(1) - lineitem["l_discount"][li_ok]))
+    revenue = np.bincount(lk[li_ok], weights=rev.astype(np.float64),
+                          minlength=ord_ok.size)
+    keys = np.flatnonzero(np.bincount(lk[li_ok], minlength=ord_ok.size))
+    top = keys[np.lexsort((orders["o_orderdate"][keys],
+                           -revenue[keys]))[:10]]
+    return top, revenue[top], orders
+
+
 # slots of each kernel's headline case in the kernels line
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
@@ -857,6 +1104,9 @@ SOURCES = {
     "seg_sums_exact": "hdk_tpu_torch/csrc/int_hist.cu",
     "groupby_sums": "hdk_tpu_torch/csrc/hist.cu",
 }
+
+# the kernels TPC-H Q3 launches on the join path (phase 7)
+JOIN_KERNELS = ("count_hist", "groupby_sums")
 
 REPLACES = {
     "count_hist": "hdk_tpu/ops/pallas_hist2.py:89",
@@ -930,6 +1180,26 @@ def main() -> None:
     check("jax" not in sys.modules, "jax was imported")
     check("pandas" not in sys.modules, "pandas was imported")
 
+    # phase 7: joins in a session of their own, launches counted apart
+    # (TPC-H Q3's string column goes through pyarrow where it is
+    # installed, which may load pandas).  The earlier phases' tables are
+    # dropped, but their columns' device copies stay in the device cache
+    # until its budget evicts them: a zero budget evicts them all, and
+    # the new session sets its own.
+    del hdk
+    from hdk_tpu_torch.storage.memory import device_cache_manager
+
+    device_cache_manager().set_budget(0)
+    torch.cuda.empty_cache()
+    hist.reset_launches()
+    join_phase(hdk_tpu_torch, card, hist, want_q3=JOIN_KERNELS)
+    join_launches = hist.launches()
+    for name in JOIN_KERNELS:
+        check(join_launches[name] > 0,
+              f"kernel {name} never launched on the join path")
+    log(f"join path: kernel launches {join_launches}")
+    check("jax" not in sys.modules, "jax was imported")
+
     kernels = []
     for name, rec in report.items():
         # the headline case: taxi Q4's segment count, the kernel's widest
@@ -947,6 +1217,7 @@ def main() -> None:
             "shape": f"N={q4['N']} E={q4['E']} slots={kind}",
             "sort_route_launches": sort_launches[name],
             "sort_route_largest_E": recorder.max_e[name],
+            "join_path_launches": join_launches[name],
             "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it

@@ -1,13 +1,16 @@
 """hdk_tpu_torch — the PyTorch/CUDA port of hdk_tpu's query engine.
 
-The port runs the single-table aggregate query: scan -> Project/Filter
-chain -> GROUP BY (dense perfect-hash or sort-based, every aggregate but
-TOP_K/BOTTOM_K) or scalar aggregate -> ORDER BY / LIMIT -> result, on an
-explicit torch device.  The histograms of the group-by run hand-written
-CUDA kernels (``csrc/hist.cu``) on a CUDA device and their plain PyTorch
-versions on the CPU.  The host side (types, config, builder, IR, SQL
-parser and binder, host storage, planner) is the port's own copy of
-hdk_tpu's backend-neutral modules; nothing of hdk_tpu is imported.
+The port runs scan -> Project/Filter chain -> joins (INNER, LEFT, SEMI,
+ANTI on the perfect or the sorted-hash route, loop joins; RIGHT/FULL
+OUTER and the IN/EXISTS/correlated subqueries that bind to them) ->
+GROUP BY (dense perfect-hash or sort-based, every aggregate but
+TOP_K/BOTTOM_K) or scalar aggregate -> ORDER BY / LIMIT -> result, with
+UNION ALL, on an explicit torch device.  The histograms of the group-by
+run hand-written CUDA kernels (``csrc/hist.cu``, ``csrc/int_hist.cu``) on
+a CUDA device and their plain PyTorch versions on the CPU.  The host
+side (types, config, builder, IR, SQL parser and binder, host storage,
+planner) is the port's own copy of hdk_tpu's backend-neutral modules;
+nothing of hdk_tpu is imported.
 
     import hdk_tpu_torch
     hdk = hdk_tpu_torch.HDK(device="cuda")
@@ -15,9 +18,9 @@ hdk_tpu's backend-neutral modules; nothing of hdk_tpu is imported.
     res = ht.agg("a", "sum(b)").run()
     res.to_numpy()
 
-Routes not ported yet (joins, windows, UNION, VALUES, UNNEST, TOP_K and
-BOTTOM_K, fragment-streamed aggregation, multi-device sessions, UDFs)
-raise ``NotImplementedError`` naming their ROADMAP item.
+Routes not ported yet (windows, VALUES, UNNEST, TOP_K and BOTTOM_K,
+fragment-streamed aggregation, multi-device sessions, UDFs) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations

@@ -2,15 +2,18 @@
 routes of hdk_tpu/exec/executor.py).
 
 A step is a maximal Scan -> Project/Filter chain capped by a terminal
-(Aggregate, Sort or the materialized root).  Filters do not compact: they
-build a row mask that the terminal consumes (dead rows go to a discard
-segment of the group-by, or sort last).  An Aggregate consumed only by a
+(Aggregate, Sort, Join, UNION ALL or the materialized root).  Filters do
+not compact: they build a row mask that the terminal consumes (dead rows
+go to a discard segment of the group-by, sort last, become NULL join
+keys, or ride the union's row mask).  An Aggregate consumed only by a
 Sort runs with it as one step.  Steps are cached by structural plan key
 (the shared ``codecache``); the cached artifact is the step's Python
-closure, since PyTorch runs eagerly and has no ``jit`` to wrap.
+closure, since PyTorch runs eagerly and has no ``jit`` to wrap.  Joins
+run in ``join_exec.py``.
 
-Joins, windows, UNION, VALUES and UNNEST are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+VALUES and UNNEST (and window functions, which the scalar compiler
+refuses) are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,22 +32,22 @@ from ..utils.logger import get_channel
 from . import sort as srt
 from .agg_exec import AggExecMixin, _window
 from .codecache import CodeCache, chain_key
-from .common import (ExecTable, _CHAIN_NODES, _LazyScanColumns, _broadcast,
-                     _schema_sig)
-from .masked import MaskedCol
+from .common import (ExecTable, _CHAIN_NODES, _IdentityKeyedCache,
+                     _LazyScanColumns, _PlanArtifactCache, _broadcast,
+                     _consumer_kinds, _schema_sig)
+from .join_exec import JoinExecMixin
+from .masked import MaskedCol, torch_dtype
 from .scalar import ExecError, ScalarCompiler
 
 _LOG = get_channel("exec")
 
 _NOT_PORTED = {
-    nd.Join: "joins (ROADMAP A2)",
-    nd.LogicalUnion: "UNION (ROADMAP A3)",
     nd.LogicalValues: "VALUES (ROADMAP A3)",
     nd.Unnest: "UNNEST (ROADMAP A3)",
 }
 
 
-class Executor(AggExecMixin):
+class Executor(AggExecMixin, JoinExecMixin):
     """Per-session engine on one torch device."""
 
     def __init__(self, schema, dicts, config: Config,
@@ -63,6 +66,19 @@ class Executor(AggExecMixin):
         self._ndv_estimate: Optional[int] = None
         self._groupby_attempts = 0
         self._groupby_cap = 0
+        # join build tables keyed by (plan, build key tensors), then by the
+        # build subtree's data-plan signature
+        self._hashtable_cache = _IdentityKeyedCache(
+            256, byte_budget=config.cache.hashtable_cache_size,
+            enabled=config.cache.enable_hashtable_cache)
+        self._ht_plan_cache = _PlanArtifactCache(
+            256, byte_budget=config.cache.hashtable_cache_size,
+            enabled=config.cache.enable_hashtable_cache)
+        self._join_route: Optional[str] = None  # the last equi-join's route
+        self._join_builds = 0  # join build tables made in this session
+        # per query: each node's consumer kinds and direct consumers
+        self._consumers: Optional[Dict[int, List[str]]] = None
+        self._direct_consumers: Optional[Dict[int, list]] = None
 
     # ------------------------------------------------------------------
     def execute(self, dag: nd.QueryDag) -> ExecTable:
@@ -74,6 +90,12 @@ class Executor(AggExecMixin):
     def _execute_logged(self, dag: nd.QueryDag) -> ExecTable:
         results: Dict[int, ExecTable] = {}
         order = dag.topo_order()
+        self._consumers = _consumer_kinds(order, dag.root)
+        self._direct_consumers = {}
+        for n_ in order:
+            for pos_, i_ in enumerate(n_.inputs):
+                self._direct_consumers.setdefault(i_.id, []).append(
+                    (n_, pos_))
         t_query = _time.monotonic()
         # agg->sort fusion: a Sort that alone consumes a keyed Aggregate
         # runs with it as one step (no compaction, no group-count sync)
@@ -247,6 +269,10 @@ class Executor(AggExecMixin):
             return self._exec_aggregate(node, results)
         if isinstance(node, nd.Sort):
             return self._exec_sort(node, results)
+        if isinstance(node, nd.Join):
+            return self._exec_join(node, results)
+        if isinstance(node, nd.LogicalUnion):
+            return self._exec_union(node, results)
         for kind, item in _NOT_PORTED.items():
             if isinstance(node, kind):
                 raise NotImplementedError(f"{item} is not ported yet")
@@ -355,3 +381,50 @@ class Executor(AggExecMixin):
         return MaskedCol(
             table[torch.clamp(col.data.to(torch.int64), 0, len(strings) - 1)],
             col.mask)
+
+    # ------------------------------------------------------------------
+    def _materialize_input(self, node: nd.Node, results) -> ExecTable:
+        """Dense table of a loop-join input (compacted)."""
+        return self._input_table_masked(node, results).compact()
+
+    def _input_table_masked(self, node: nd.Node, results) -> ExecTable:
+        """A join or union input without compaction: it keeps its row
+        mask."""
+        source, chain, _src = self._resolve_chain(node, results)
+        if not chain:
+            return source
+        return self._exec_chain_root(node, results)
+
+    def _exec_union(self, node: nd.LogicalUnion, results) -> ExecTable:
+        """UNION ALL: the inputs' columns concatenated, each cast to the
+        union's type; a filtered input adds its row mask to the union's
+        instead of compacting."""
+        parts = [self._input_table_masked(i, results) for i in node.inputs]
+        live = [p for p in parts if p.nrows > 0]
+        if not live:
+            return ExecTable.empty(list(node.fields), list(node.output_types),
+                                   self.device)
+        if any(ty.is_array() for ty in node.output_types):
+            raise NotImplementedError(
+                "array columns are not ported yet (ROADMAP A3)")
+
+        def ones(n):
+            return torch.ones((n,), dtype=torch.bool, device=self.device)
+
+        row_mask = None
+        if any(p.row_mask is not None for p in live):
+            row_mask = torch.cat([p.row_mask if p.row_mask is not None
+                                  else ones(p.nrows) for p in live])
+        cols: List[MaskedCol] = []
+        for ci, ty in enumerate(node.output_types):
+            dt = torch_dtype(ty.physical_dtype())
+            parts_c = [_broadcast(p.columns[ci], p.nrows) for p in live]
+            data = torch.cat([c.data.to(dt) for c in parts_c])
+            mask = None
+            if any(c.mask is not None for c in parts_c):
+                mask = torch.cat([c.mask if c.mask is not None
+                                  else ones(c.data.shape[0])
+                                  for c in parts_c])
+            cols.append(MaskedCol(data, mask))
+        return ExecTable(list(node.fields), list(node.output_types), cols,
+                         sum(p.nrows for p in live), row_mask)

@@ -3,6 +3,7 @@
 CUDA card, for comparing two trees in one call.
 
     python3 k1_ab.py --tree DIR [--label NAME] [--kernel k1|k2|k3|k4] [--sweep]
+                     [--queries main|q3]
 
 ``--kernel k1`` (the default) times K1, ``groupby_sums``:
 
@@ -48,6 +49,11 @@ issue one call.  ``kernel_ms`` times one call between two CUDA events,
 ``kernel_ms_batched`` one of ten back-to-back calls.  With ``--sweep``
 they time every mode of ``kernels/hist.py::_int_mode`` (a tree whose
 kernel has it) instead.
+
+``--queries q3`` replaces the queries above by TPC-H Q3 (chip_smoke.py
+phase 7's J4: 1.5M customers, 15M orders, 60M lineitem rows; two perfect
+joins, then the sort-route GROUP BY whose float SUM is K1 over sorted
+ids), its warm latency beside the same numbers for the kernel.
 """
 
 from __future__ import annotations
@@ -421,6 +427,20 @@ def query_rows(mod, cs):
     return out
 
 
+def q3_rows(mod, cs):
+    """Warm latency of TPC-H Q3 (phase 7's J4)."""
+    hdk = mod.HDK(device="cuda")
+    tables = dict(zip(("customer3", "orders3", "lineitem3"),
+                      cs.gen_tpch_q3()))
+    for name, data in tables.items():
+        hdk.import_pydict(data, name=name, schema=cs.q3_schema(mod.types,
+                                                               name))
+    out = {"tpch_q3": warm_latency(lambda: hdk.sql(cs.TPCH_Q3))}
+    for name in tables:
+        hdk.drop_table(name)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", required=True)
@@ -430,6 +450,9 @@ def main() -> None:
                     default="k1")
     ap.add_argument("--no-queries", action="store_true",
                     help="k2/k3/k4: time the kernel alone")
+    ap.add_argument("--queries", choices=("main", "q3"), default="main",
+                    help="q3: time TPC-H Q3 in place of the kernel's "
+                         "main-path queries")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_ab.py needs a CUDA card")
@@ -459,7 +482,8 @@ def main() -> None:
             result["host_us"] = host_us(hist, args.kernel)
             result["kernels"] = int_kernel_rows(hist, onehot, args.kernel)
             if not args.no_queries:
-                rows = (k2_query_rows if args.kernel == "k2"
+                rows = (q3_rows if args.queries == "q3"
+                        else k2_query_rows if args.kernel == "k2"
                         else int_query_rows)
                 result["queries"] = rows(hdk_tpu_torch, cs)
         print(json.dumps(result), flush=True)
@@ -469,10 +493,11 @@ def main() -> None:
                           "card": cs.gpu_line(), "sweep": sweep_rows(hist)}),
               flush=True)
         return
+    rows = q3_rows if args.queries == "q3" else query_rows
     print(json.dumps({"label": args.label, "tree": tree,
                       "card": cs.gpu_line(),
                       "kernels": kernel_rows(hist, onehot),
-                      "queries": query_rows(hdk_tpu_torch, cs)}), flush=True)
+                      "queries": rows(hdk_tpu_torch, cs)}), flush=True)
 
 
 if __name__ == "__main__":

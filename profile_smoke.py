@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the sort-route queries of chip_smoke.py.
+"""Device-time breakdown of the sort-route and join queries of
+chip_smoke.py.
 
     python3 profile_smoke.py [--out FILE.json] [--top N] [--scale F]
                              [--device cuda|cpu]
 
-Runs HN1 and HN2 (high-NDV group-by, 100M rows) and holistic Q1-Q3 (10M
-rows) on the data and seeds of chip_smoke.py's phases 5-6: two warm runs
-each, then one run under ``torch.profiler``.  Per query it prints the
+Runs HN1 and HN2 (high-NDV group-by, 100M rows), holistic Q1-Q3 (10M
+rows), J1 (100M probe rows into a 10M-row build) and TPC-H Q3 (60M
+lineitem rows) on the data and seeds of chip_smoke.py's phases 5-7: two
+warm runs each, then one run under ``torch.profiler``.  Per query it prints the
 host wall time of the profiled run, the device busy time (the union of
 the kernels' intervals), the idle share ``1 - busy / wall``, and the top
 kernels and operators by device time; ``--out`` writes the same as JSON.
@@ -137,8 +139,27 @@ def main() -> None:
         results.append(profile_query(f"holistic Q{i} ({hol_rows} rows)",
                                      lambda: hdk.sql(sql), args.top))
     hdk.drop_table("h")
-    cs.check("jax" not in sys.modules, "jax was imported")
     cs.check("pandas" not in sys.modules, "pandas was imported")
+
+    trips, payments = cs.gen_join(args.scale)
+    tj = hdk.import_pydict(trips, name="trips_j")
+    pj = hdk.import_pydict(payments, name="payments_j")
+    results.append(profile_query(
+        f"J1 ({trips['k'].size} x {payments['k'].size} rows)",
+        lambda: tj.join(pj, "k", "k").agg([], "count", "sum(fee)").run(),
+        args.top))
+    del trips, payments
+    hdk.drop_table("trips_j")
+    hdk.drop_table("payments_j")
+    tables = dict(zip(("customer3", "orders3", "lineitem3"),
+                      cs.gen_tpch_q3(args.scale)))
+    for name, data in tables.items():
+        hdk.import_pydict(data, name=name,
+                          schema=cs.q3_schema(hdk_tpu_torch.types, name))
+    results.append(profile_query(
+        f"TPC-H Q3 ({tables['lineitem3']['l_orderkey'].size} lineitem rows)",
+        lambda: hdk.sql(cs.TPCH_Q3), args.top))
+    cs.check("jax" not in sys.modules, "jax was imported")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

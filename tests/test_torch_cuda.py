@@ -1,8 +1,8 @@
 """The CUDA kernels on the card: each against its plain version, in both
 the shared-memory and the global-atomic mode and over the sorted group
 ids of the sort-based group-by, K1 at the shapes its design treats
-apart, and the main path, the sort route and scalar subqueries on a CUDA
-session against the same session on the CPU.  Skips where there
+apart, and the main path, the sort route, scalar subqueries and joins on
+a CUDA session against the same session on the CPU.  Skips where there
 is no card.  On the card, without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -385,3 +385,79 @@ def test_groupby_sums2_modes(cuda, case, mode):
             == _int_launches(n_cols, n_entries, torch.bool))
     assert got.dtype == torch.int64 and got.shape == (n_entries, n_cols)
     assert torch.equal(got, want)
+
+
+def _rows(out):
+    """(NULL flags, values) per column of a to_numpy result, rows in
+    lexicographic order of both."""
+    cols = []
+    for name, v in out.items():
+        null = np.ma.getmaskarray(v)
+        data = np.where(null, 0, np.ma.getdata(v))
+        cols.append((null, data))
+    keys = [c for pair in cols for c in pair]
+    order = np.lexsort(keys[::-1]) if keys and len(keys[0]) else []
+    return [(n[order], d[order]) for n, d in cols]
+
+
+def test_joins_on_the_card(cuda, monkeypatch):
+    """The join routes (perfect, sorted-hash, loop), outer joins,
+    subqueries and TPC-H Q3 on a CUDA session against a CPU session:
+    the same rows and routes, no plain version on a CUDA tensor."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(9)
+    n = 200_000
+    k = rng.integers(0, 30_000, n)
+    tables = {
+        "l": {"k": np.ma.MaskedArray(k, rng.random(n) < 0.05),
+              "v": rng.gamma(2.0, 10.0, n), "g": rng.integers(0, 50, n)},
+        "r": {"k": rng.permutation(40_000)[:25_000],
+              "w": rng.integers(-100, 100, 25_000)},
+        "d": {"k": rng.integers(0, 30_000, 20_000) * (1 << 30),
+              "w": rng.integers(-100, 100, 20_000)},
+        "s": {"y": rng.integers(0, 20, 300), "z": rng.integers(0, 9, 300)},
+    }
+    tables["l"]["kd"] = k * (1 << 30)
+    q3 = dict(zip(("customer3", "orders3", "lineitem3"), cs.gen_tpch_q3(1e-3)))
+    queries = [
+        ("SELECT l.k, v, w FROM l JOIN r ON l.k = r.k WHERE v > 20", "perfect"),
+        ("SELECT l.k, v, w FROM l LEFT JOIN r ON l.k = r.k", "perfect"),
+        ("SELECT g, COUNT(*), SUM(w) FROM l JOIN r ON l.k = r.k "
+         "GROUP BY g ORDER BY g", "perfect"),
+        ("SELECT COUNT(*), SUM(v) FROM l WHERE k IN "
+         "(SELECT k FROM r WHERE w > 0)", "perfect"),
+        ("SELECT COUNT(*) FROM l WHERE NOT EXISTS "
+         "(SELECT 1 FROM r WHERE r.k = l.k AND r.w > 50)", "perfect"),
+        ("SELECT kd, v, w FROM l JOIN d ON l.kd = d.k", "hash"),
+        ("SELECT kd, v, w FROM l LEFT JOIN d ON l.kd = d.k AND w > 0",
+         "hash"),
+        ("SELECT l.k, v, r.k AS rk, w FROM l FULL JOIN r ON l.k = r.k "
+         "AND w > 90", "hash"),
+        ("SELECT g, y, z FROM l, s WHERE v > 60 AND g < y AND z = 3", None),
+        ("SELECT k FROM l WHERE g < 2 UNION ALL SELECT k FROM r "
+         "WHERE w > 98", None),
+        (cs.TPCH_Q3, "perfect"),
+    ]
+    out = []
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            _refuse_plain_versions(monkeypatch)
+        hdk = hdk_tpu_torch.HDK(device=device)
+        for name, data in {**tables, **q3}.items():
+            hdk.import_pydict(data, name=name,
+                              schema=cs.q3_schema(hdk_tpu_torch.types, name))
+        got = []
+        for sql, route in queries:
+            hdk._executor._join_route = None
+            got.append(hdk.sql(sql).to_numpy())
+            assert hdk._executor._join_route == route, sql
+        out.append(got)
+    for (sql, _), cpu, gpu in zip(queries, *out):
+        assert list(cpu) == list(gpu), sql
+        for (cn, cv), (gn, gv) in zip(_rows(cpu), _rows(gpu)):
+            assert np.array_equal(cn, gn), sql
+            if cv.dtype.kind == "f":
+                np.testing.assert_allclose(gv, cv, rtol=1e-9, err_msg=sql)
+            else:
+                assert np.array_equal(gv, cv), sql

@@ -141,12 +141,18 @@ def test_result_chaining(taxi):
     assert_same(*out)
 
 
-def test_join_is_refused(taxi):
+@pytest.mark.parametrize("what", ["values", "unnest"])
+def test_values_and_unnest_are_refused(taxi, what):
+    """VALUES (a FROM-less SELECT) and UNNEST raise naming ROADMAP A3
+    (joins run: tests/test_torch_join*.py); UNNEST needs an array column,
+    whose import raises."""
     _, pt = taxi
-    ht = pt.scan("trips")
-    q = ht.join(ht, "cab_type", "cab_type").agg([], "count")
-    with pytest.raises(NotImplementedError, match="joins"):
-        q.run()
+    with pytest.raises(NotImplementedError, match="A3"):
+        if what == "values":
+            pt.sql("SELECT 1 + 1 AS a").to_arrow()
+        else:
+            pt.import_pydict({"id": [1, 2], "xs": [[1, 2], [3, 4]]},
+                             name="arr_t").unnest("xs").run()
 
 
 def test_sort_based_groupby_is_refused(nulls):
