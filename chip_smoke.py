@@ -38,10 +38,20 @@ Phases, each printed as it runs:
      lineitem rows; two perfect joins, then the sort-route GROUP BY) and
      J5 an IN subquery (a SEMI join), each against a numpy oracle, with
      its route, cold time, median warm latency and rows/s; a warm run
-     that builds a join table again fails.
-Phases 5-6 are the sort route and phase 7 the join path: each phase's
-kernel launches count apart from the others', every kernel must launch
-on phases 4 and 5-6, and the kernels of TPC-H Q3 on phase 7.  The line
+     that builds a join table again fails;
+  8. window functions and array columns, in a session of their own: W1
+     the top 10 per passenger count by ROW_NUMBER over 100M taxi rows
+     (and the full RANK and DENSE_RANK columns), W2 a cumulative SUM, a
+     LAG and a 7-row moving AVG under a GROUP BY, W3 whole-partition
+     SUM and COUNT over TPC-H lineitem's 15M orders (60M rows), W4
+     TOP_K/BOTTOM_K per passenger count with UNNEST and an imported
+     10M x 4 int32 array column (CARDINALITY, a subscript, UNNEST and a
+     GROUP BY count), each against numpy with its cold time, median warm
+     latency and rows/s.
+Phases 5-6 are the sort route, phase 7 the join path and phase 8 the
+window path: each phase's kernel launches count apart from the others',
+every kernel must launch on phases 4 and 5-6, the kernels of TPC-H Q3 on
+phase 7 and W3's (K1 and K4) on phase 8.  The line
 before the last is a JSON object with the per-kernel results (every
 phase-3 case under ``cases``); the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
@@ -1094,6 +1104,270 @@ def q3_oracle(customer, orders, lineitem):
     return top, revenue[top], orders
 
 
+# -- phase 8: window functions and array columns ---------------------------
+
+ARRAY_ROWS = 10_000_000
+ARRAY_WIDTH = 4
+W1_SPEC = ("PARTITION BY passenger_count ORDER BY total_amount DESC, "
+           "pickup_datetime")
+W1 = ("SELECT passenger_count, total_amount, rn FROM (SELECT "
+      "passenger_count, total_amount, ROW_NUMBER() OVER (" + W1_SPEC
+      + ") AS rn FROM trips) WHERE rn <= 10 ORDER BY passenger_count, rn")
+W1_RANKS = (f"SELECT RANK() OVER ({W1_SPEC}) AS r, DENSE_RANK() OVER "
+            f"({W1_SPEC}) AS dr FROM trips")
+W2 = ("SELECT passenger_count, COUNT(*) AS c, MAX(cs) AS mcs, SUM(lg) AS slg, "
+      "SUM(ra) AS sra FROM (SELECT passenger_count, SUM(total_amount) OVER "
+      "(PARTITION BY passenger_count ORDER BY pickup_datetime) AS cs, "
+      "LAG(total_amount) OVER (PARTITION BY passenger_count ORDER BY "
+      "pickup_datetime) AS lg, AVG(trip_distance) OVER (PARTITION BY "
+      "cab_type ORDER BY pickup_datetime ROWS BETWEEN 6 PRECEDING AND "
+      "CURRENT ROW) AS ra FROM trips) GROUP BY passenger_count "
+      "ORDER BY passenger_count")
+W3 = ("SELECT COUNT(*) AS c, SUM(rev) AS s FROM (SELECT "
+      "SUM(l_extendedprice * (1 - l_discount)) OVER (PARTITION BY "
+      "l_orderkey) AS rev, COUNT(*) OVER (PARTITION BY l_orderkey) AS nl "
+      "FROM lineitem3) WHERE rev > 100000 AND nl >= 5")
+# the kernels W3's whole-partition SUM and COUNT launch (over sorted ids)
+WINDOW_KERNELS = ("groupby_sums", "count_hist")
+PICKUP_BASE = 1356998400  # gen_taxi's first pickup second
+
+
+def window_order(*keys):
+    """Row order of a window sort over non-negative integer keys (each
+    (values, bits), most significant first), ties by row.  Least
+    significant keys first, each pass one ``np.sort`` of the keys it
+    takes packed above the row's rank in the order so far (which makes
+    every pass stable); as many keys a pass as fit in 63 bits."""
+    n = keys[0][0].size
+    rank_bits = max(1, int(n - 1).bit_length())
+    passes, cur, bits = [], [], rank_bits
+    for values, b in reversed(keys):
+        check(b + rank_bits <= 63, "window oracle key wider than a pass")
+        if bits + b > 63:
+            passes.append(cur)
+            cur, bits = [], rank_bits
+        cur.insert(0, (values, b))
+        bits += b
+    passes.append(cur)
+    order = np.arange(n, dtype=np.int64)
+    for group in passes:
+        packed = np.zeros(n, np.int64)
+        for values, b in group:
+            packed = (packed << b) | values[order].astype(np.int64)
+        packed = np.sort((packed << rank_bits)
+                         | np.arange(n, dtype=np.int64))
+        order = order[packed & ((1 << rank_bits) - 1)]
+    return order
+
+
+def spans(sorted_part):
+    """(partition start per sorted row, boundary flags) of sorted keys."""
+    n = sorted_part.size
+    b = np.ones(n, bool)
+    b[1:] = sorted_part[1:] != sorted_part[:-1]
+    pos = np.arange(n)
+    return np.maximum.accumulate(np.where(b, pos, 0)), b
+
+
+def w1_oracle(data):
+    """W1's ten rows per passenger count, and the full RANK and DENSE_RANK
+    columns, from one sort of (passenger_count, total_amount DESC,
+    pickup_datetime)."""
+    pc = data["passenger_count"].astype(np.int64)
+    amount = data["total_amount"]
+    check(bool((amount >= 0).all()), "W1 oracle: a negative total_amount")
+    desc = (np.int64(0x7FFFFFFF) - amount.view(np.int32).astype(np.int64))
+    pick = data["pickup_datetime"] - PICKUP_BASE
+    order = window_order((pc, 4), (desc, 31), (pick, 27))
+    spc, samt, spick = pc[order], amount[order], pick[order]
+    start, pb = spans(spc)
+    tb = pb.copy()
+    tb[1:] |= (samt[1:] != samt[:-1]) | (spick[1:] != spick[:-1])
+    pos = np.arange(order.size)
+    rank_s = np.maximum.accumulate(np.where(tb, pos, 0)) - start + 1
+    tiec = np.cumsum(tb)
+    dense_s = tiec - tiec[start] + 1
+    rn = pos - start + 1
+    top = rn <= 10
+    rank = np.empty_like(rank_s)
+    rank[order] = rank_s
+    dense = np.empty_like(dense_s)
+    dense[order] = dense_s
+    return (spc[top], samt[top], rn[top]), rank, dense
+
+
+def w2_oracle(data):
+    """W2's columns per passenger count: COUNT(*), MAX of the cumulative
+    float32 sum (each partition's total: the values are positive), SUM of
+    LAG (the total but the partition's last row in pickup order) and SUM
+    of the 7-row moving average over (cab_type, pickup_datetime), summed
+    directly over ``sliding_window_view``."""
+    pc = data["passenger_count"].astype(np.int64)
+    amount = data["total_amount"].astype(np.float64)
+    pick = data["pickup_datetime"] - PICKUP_BASE
+    total = np.bincount(pc, weights=amount, minlength=9)
+    order = window_order((pc, 4), (pick, 27))
+    _, pb = spans(pc[order])
+    last = order[np.append(np.flatnonzero(pb)[1:] - 1, order.size - 1)]
+    slg = total.copy()
+    slg[pc[last]] -= amount[last]
+    del order, pb
+    cab = data["cab_type"].astype(np.int64)
+    dist = data["trip_distance"].astype(np.float64)
+    order = window_order((cab, 1), (pick, 27))
+    ra = np.empty(order.size)
+    scab = cab[order]
+    for c in np.unique(scab):
+        rows = order[scab == c]
+        padded = np.concatenate([np.zeros(6), dist[rows]])
+        sums = np.lib.stride_tricks.sliding_window_view(padded, 7).sum(axis=1)
+        ra[rows] = sums / np.minimum(np.arange(1, rows.size + 1), 7)
+    return (np.bincount(pc, minlength=9), total, slg,
+            np.bincount(pc, weights=ra, minlength=9))
+
+
+def w3_oracle(lineitem):
+    """(c, s, slack) of W3: each order's revenue summed in float64 and
+    rounded to float32, as the engine's FLOAT column holds it; ``slack``
+    is the rows of orders whose revenue lies within one float32 ulp of
+    100000, which either side of the cut may count."""
+    lk = lineitem["l_orderkey"]
+    rev_row = (lineitem["l_extendedprice"]
+               * (np.float32(1) - lineitem["l_discount"]))
+    rev = np.bincount(lk, weights=rev_row.astype(np.float64)).astype(
+        np.float32)
+    nl = np.bincount(lk, minlength=rev.size)
+    sel = (rev > np.float32(100000)) & (nl >= 5)
+    ulp = np.spacing(np.float32(100000))
+    near = np.abs(rev.astype(np.float64) - 100000.0) <= ulp
+    return (int(nl[sel].sum()), float((rev[sel].astype(np.float64)
+                                       * nl[sel]).sum()),
+            int(nl[near & (nl >= 5)].sum()))
+
+
+def gen_arrays(rows: int, width: int = ARRAY_WIDTH):
+    """An int32 array column of ``rows`` lists of 0..width elements in
+    [0, 1000), 10% of the elements NULL (absent), as a 2-D masked array
+    (True = absent)."""
+    rng = np.random.default_rng(37)
+    lengths = rng.integers(0, width + 1, rows)
+    present = ((np.arange(width)[None, :] < lengths[:, None])
+               & (rng.random((rows, width)) >= 0.1))
+    return (rng.integers(0, 1000, (rows, width)).astype(np.int32),
+            present)
+
+
+def window_phase(hdk_mod, card, hist, device="cuda", taxi_rows=TAXI_ROWS,
+                 tpch_scale=1.0, array_rows=ARRAY_ROWS,
+                 want_w3=WINDOW_KERNELS):
+    """W1-W4 in a session of their own, each against numpy: W1 the top 10
+    per passenger count by ROW_NUMBER (and, cold, the full RANK and
+    DENSE_RANK columns), W2 a cumulative SUM, a LAG and a 7-row moving
+    AVG under a GROUP BY, W3 the partition totals of TPC-H lineitem over
+    15M orders, W4 TOP_K/BOTTOM_K per passenger count with UNNEST and an
+    imported array column (CARDINALITY, a subscript, UNNEST + GROUP BY)."""
+    hdk = hdk_mod.HDK(device=device)
+    t = hdk_mod.types
+    t0 = time.perf_counter()
+    data = gen_taxi(taxi_rows)
+    log(f"window phase: taxi {taxi_rows} rows generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ht = hdk.import_pydict(
+        dict(data), name="trips",
+        schema={"pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)})
+
+    # W1: top 10 per group by ROW_NUMBER
+    t0 = time.perf_counter()
+    (w1_pc, w1_amt, w1_rn), rank, dense = w1_oracle(data)
+    log(f"W1 oracle in {time.perf_counter() - t0:.1f} s")
+    res = timed_query(lambda: hdk.sql(W1), card, "W1", taxi_rows, hist, [])
+    out = res.to_numpy()
+    equal(out["passenger_count"], w1_pc, "W1 passenger_count")
+    equal(out["total_amount"], w1_amt, "W1 total_amount")
+    equal(out["rn"], w1_rn, "W1 rn")
+    check(out["rn"].size == 90 or taxi_rows < 90 * 9, "W1 rows")
+    t0 = time.perf_counter()
+    out = hdk.sql(W1_RANKS).to_numpy()
+    equal(out["r"], rank, "W1 RANK column")
+    equal(out["dr"], dense, "W1 DENSE_RANK column")
+    log(f"W1 RANK and DENSE_RANK: {rank.size} rows equal the oracle "
+        f"(query and check {time.perf_counter() - t0:.1f} s)")
+    del out, rank, dense
+
+    # W2: cumulative SUM, LAG and a moving AVG under a GROUP BY
+    t0 = time.perf_counter()
+    cnt, total, slg, sra = w2_oracle(data)
+    log(f"W2 oracle in {time.perf_counter() - t0:.1f} s")
+    res = timed_query(lambda: hdk.sql(W2), card, "W2", taxi_rows, hist, [])
+    out = res.to_numpy()
+    present = np.flatnonzero(cnt)
+    equal(out["passenger_count"], present, "W2 keys")
+    equal(out["c"], cnt[present], "W2 count")
+    close(out["mcs"], total[present].astype(np.float32), 1e-6, "W2 max(cs)")
+    close(out["slg"], slg[present], 1e-6, "W2 sum(lg)")
+    close(out["sra"], sra[present], 1e-9, "W2 sum(ra)")
+
+    # W4 (taxi): TOP_K / BOTTOM_K per passenger count, then UNNEST
+    agg = lambda: ht.agg("passenger_count",
+                         ht["total_amount"].top_k(5).name("tk"),
+                         ht["trip_distance"].bottom_k(5).name("bk")).run()
+    res = timed_query(agg, card, "W4_topk", taxi_rows, hist, [])
+    pc = data["passenger_count"]
+    for col, name, largest in (("total_amount", "tk", True),
+                               ("trip_distance", "bk", False)):
+        rows = res.scan.unnest(name).run().to_numpy()
+        want_pc, want_v = [], []
+        for p in present:
+            v = np.sort(data[col][pc == p])
+            v = v[::-1][:5] if largest else v[:5]
+            want_pc += [p] * v.size
+            want_v.append(v)
+        equal(rows["passenger_count"], want_pc, f"W4 {name} keys")
+        equal(rows[name], np.concatenate(want_v), f"W4 {name} values")
+    log(f"W4 top_k/bottom_k: {2 * len(want_pc)} unnested rows equal "
+        f"the oracle")
+    hdk.drop_table("trips")
+    del data, ht, res, pc
+
+    # W3: partition totals over 15M orders (groupby.transform)
+    tables = gen_tpch_q3(tpch_scale)
+    lineitem = tables[2]
+    del tables
+    hdk.import_pydict(lineitem, name="lineitem3",
+                      schema=q3_schema(t, "lineitem3"))
+    c, s, slack = w3_oracle(lineitem)
+    res = timed_query(lambda: hdk.sql(W3), card, "W3",
+                      lineitem["l_orderkey"].size, hist, want_w3)
+    out = res.to_numpy()
+    check(abs(int(out["c"][0]) - c) <= slack,
+          f"W3 count {int(out['c'][0])} vs {c} (slack {slack})")
+    close(out["s"], [s], 1e-6, "W3 sum(rev)")
+    hdk.drop_table("lineitem3")
+    del lineitem
+
+    # W4 (arrays): an imported int32 array column
+    values, alive = gen_arrays(array_rows)
+    ha = hdk.import_pydict({"id": np.arange(array_rows),
+                            "xs": np.ma.MaskedArray(values, ~alive)},
+                           name="arrs")
+    res = timed_query(lambda: ha.proj(n=ha["xs"].cardinality(),
+                                      x1=ha["xs"].at(1)).run(),
+                      card, "W4_cardinality", array_rows, hist, [])
+    out = res.to_numpy()
+    equal(out["n"], alive.sum(axis=1), "W4 cardinality")
+    equal(np.ma.getmaskarray(out["x1"]), ~alive[:, 1], "W4 xs[1] NULLs")
+    equal(np.ma.getdata(out["x1"])[alive[:, 1]], values[alive[:, 1], 1],
+          "W4 xs[1]")
+    res = timed_query(lambda: ha.unnest("xs").agg("xs", "count").run(),
+                      card, "W4_unnest", array_rows * ARRAY_WIDTH, hist,
+                      [])
+    out = res.to_numpy()
+    keys, counts = np.unique(values[alive], return_counts=True)
+    equal(out["xs"], keys, "W4 unnest keys")
+    equal(out["count"], counts, "W4 unnest count")
+    hdk.drop_table("arrs")
+
+
 # slots of each kernel's headline case in the kernels line
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
@@ -1200,6 +1474,18 @@ def main() -> None:
     log(f"join path: kernel launches {join_launches}")
     check("jax" not in sys.modules, "jax was imported")
 
+    # phase 8: window functions and array columns in a session of their
+    # own, launches counted apart; W3 must launch K1 and K4
+    torch.cuda.empty_cache()
+    hist.reset_launches()
+    window_phase(hdk_tpu_torch, card, hist)
+    window_launches = hist.launches()
+    for name in WINDOW_KERNELS:
+        check(window_launches[name] > 0,
+              f"kernel {name} never launched on the window path")
+    log(f"window path: kernel launches {window_launches}")
+    check("jax" not in sys.modules, "jax was imported")
+
     kernels = []
     for name, rec in report.items():
         # the headline case: taxi Q4's segment count, the kernel's widest
@@ -1218,6 +1504,7 @@ def main() -> None:
             "sort_route_launches": sort_launches[name],
             "sort_route_largest_E": recorder.max_e[name],
             "join_path_launches": join_launches[name],
+            "window_path_launches": window_launches[name],
             "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it

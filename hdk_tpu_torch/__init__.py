@@ -1,11 +1,12 @@
 """hdk_tpu_torch — the PyTorch/CUDA port of hdk_tpu's query engine.
 
-The port runs scan -> Project/Filter chain -> joins (INNER, LEFT, SEMI,
-ANTI on the perfect or the sorted-hash route, loop joins; RIGHT/FULL
-OUTER and the IN/EXISTS/correlated subqueries that bind to them) ->
-GROUP BY (dense perfect-hash or sort-based, every aggregate but
-TOP_K/BOTTOM_K) or scalar aggregate -> ORDER BY / LIMIT -> result, with
-UNION ALL, on an explicit torch device.  The histograms of the group-by
+The port runs scan -> Project/Filter chain (with window functions) ->
+joins (INNER, LEFT, SEMI, ANTI on the perfect or the sorted-hash route,
+loop joins; RIGHT/FULL OUTER and the IN/EXISTS/correlated subqueries that
+bind to them) -> GROUP BY (dense perfect-hash or sort-based, every
+aggregate) or scalar aggregate -> ORDER BY / LIMIT -> result, with UNION
+ALL, VALUES, and array columns (TOP_K/BOTTOM_K, CARDINALITY, subscript,
+UNNEST), on an explicit torch device.  The histograms of the group-by
 run hand-written CUDA kernels (``csrc/hist.cu``, ``csrc/int_hist.cu``) on
 a CUDA device and their plain PyTorch versions on the CPU.  The host
 side (types, config, builder, IR, SQL parser and binder, host storage,
@@ -18,9 +19,9 @@ nothing of hdk_tpu is imported.
     res = ht.agg("a", "sum(b)").run()
     res.to_numpy()
 
-Routes not ported yet (windows, VALUES, UNNEST, TOP_K and BOTTOM_K,
-fragment-streamed aggregation, multi-device sessions, UDFs) raise
-``NotImplementedError`` naming their ROADMAP item.
+Routes not ported yet (fragment-streamed aggregation, EXPLAIN,
+multi-device sessions, UDFs) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -174,11 +175,18 @@ class HDK:
                       schema: Optional[Dict[str, types.Type]] = None
                       ) -> QueryNode:
         """Columns from lists or numpy arrays; a ``numpy.ma.MaskedArray``
-        carries NULLs where it is masked (no pyarrow needed)."""
+        carries NULLs where it is masked (no pyarrow needed), and a 2-D
+        one (rows x width) is an array column whose masked elements are
+        absent, which gives lists of any length up to the width."""
         name = self._table_name(name)
         cols = []
         for cname, values in data.items():
-            if isinstance(values, np.ma.MaskedArray):
+            if isinstance(values, np.ma.MaskedArray) and values.ndim == 2:
+                elem = types.from_numpy_dtype(values.dtype)
+                cols.append((cname, types.array(elem, nullable=True),
+                             np.ma.getdata(values),
+                             ~np.ma.getmaskarray(values)))
+            elif isinstance(values, np.ma.MaskedArray):
                 declared = (schema or {}).get(cname)
                 typ, phys, validity = _imp._from_numpy(
                     cname, np.ma.getdata(values), self._dicts, declared,
@@ -201,8 +209,25 @@ class HDK:
         return self.import_arrow(
             pa.Table.from_pandas(df, preserve_index=False), name)
 
+    def import_parquet(self, path, name: Optional[str] = None) -> QueryNode:
+        import pyarrow.parquet as pq
+
+        return self.import_arrow(pq.read_table(path), name)
+
     def drop_table(self, name: str) -> None:
         self._schema.drop(name)
+
+    def append_pydict(self, name: str, data: Dict[str, Sequence]) -> None:
+        """Append rows to a table, each column read as the table's type
+        (array columns pad to the wider width)."""
+        from .storage.table import Column
+
+        table = self._schema.get(name)
+        own = [c for c in table.columns if not c.info.is_rowid]
+        cols = _imp.columns_from_pydict(
+            data, self._dicts, {c.info.name: c.type for c in own})
+        by_name = {n: (d, v) for n, _ty, d, v in cols}
+        table.append([Column(c.info, *by_name[c.info.name]) for c in own])
 
     # -- query construction -------------------------------------------------
     def scan(self, name: str) -> QueryNode:
@@ -230,6 +255,32 @@ class HDK:
         return QueryExpr(_ir_expr.Constant(types.timestamp(tu, False), int(v)))
 
     if_then_else = staticmethod(if_then_else)
+
+    # -- window functions: shells that ``over``/``order_by`` complete -------
+    def _window(self, kind: "_ir_expr.WindowKind", typ, arg1=None,
+                name: str = "") -> QueryExpr:
+        wf = _ir_expr.WindowFunction(typ, kind, [], [], [], (), arg1)
+        return QueryExpr(wf, name or kind.value)
+
+    def row_number(self) -> QueryExpr:
+        return self._window(_ir_expr.WindowKind.ROW_NUMBER, types.int64(False))
+
+    def rank(self) -> QueryExpr:
+        return self._window(_ir_expr.WindowKind.RANK, types.int64(False))
+
+    def dense_rank(self) -> QueryExpr:
+        return self._window(_ir_expr.WindowKind.DENSE_RANK, types.int64(False))
+
+    def percent_rank(self) -> QueryExpr:
+        return self._window(_ir_expr.WindowKind.PERCENT_RANK,
+                            types.fp64(False))
+
+    def cume_dist(self) -> QueryExpr:
+        return self._window(_ir_expr.WindowKind.CUME_DIST, types.fp64(False))
+
+    def ntile(self, tile_count: int) -> QueryExpr:
+        return self._window(_ir_expr.WindowKind.NTILE, types.int64(False),
+                            arg1=tile_count)
 
     # -- SQL ----------------------------------------------------------------
     def sql(self, query: str, **options) -> "QueryResult":

@@ -244,9 +244,10 @@ class AggExecMixin:
                                                  nrows0)
                 specs = self._build_specs(node, resolve, nrows0)
                 scalars = gb.nogroup_agg(specs, nrows0, rm, self.device)
-                return [MaskedCol(s.data.reshape(1),
-                                  s.mask.reshape(1) if s.mask is not None
-                                  else None)
+                # one row; TOP_K/BOTTOM_K give one array of k elements
+                return [MaskedCol(s.data.reshape((1,) + s.data.shape),
+                                  s.mask.reshape((1,) + s.mask.shape)
+                                  if s.mask is not None else None)
                         for s in scalars]
 
             return fn

@@ -65,11 +65,15 @@ class ExecTable:
     @staticmethod
     def empty(fields: List[str], types: List[t.Type],
               device: torch.device) -> "ExecTable":
+        # an array column is (0, 1) with an element mask, as in the JAX
+        # package: zero rows carry no width
         cols = [
-            MaskedCol(torch.zeros((0,), dtype=torch_dtype(ty.physical_dtype()),
+            MaskedCol(torch.zeros((0, 1) if ty.is_array() else (0,),
+                                  dtype=torch_dtype(ty.physical_dtype()),
                                   device=device),
-                      torch.zeros((0,), dtype=torch.bool, device=device)
-                      if ty.nullable else None)
+                      torch.zeros((0, 1) if ty.is_array() else (0,),
+                                  dtype=torch.bool, device=device)
+                      if ty.nullable or ty.is_array() else None)
             for ty in types
         ]
         return ExecTable(list(fields), list(types), cols, 0)

@@ -5,15 +5,17 @@ A step is a maximal Scan -> Project/Filter chain capped by a terminal
 (Aggregate, Sort, Join, UNION ALL or the materialized root).  Filters do
 not compact: they build a row mask that the terminal consumes (dead rows
 go to a discard segment of the group-by, sort last, become NULL join
-keys, or ride the union's row mask).  An Aggregate consumed only by a
-Sort runs with it as one step.  Steps are cached by structural plan key
-(the shared ``codecache``); the cached artifact is the step's Python
-closure, since PyTorch runs eagerly and has no ``jit`` to wrap.  Joins
-run in ``join_exec.py``.
+keys, ride the union's row mask, or sort past the live rows of a window
+function, which reads the row mask of the Filters before its Project).
+An Aggregate consumed only by a Sort runs with it as one step.  Steps are
+cached by structural plan key (the shared ``codecache``); the cached
+artifact is the step's Python closure, since PyTorch runs eagerly and has
+no ``jit`` to wrap.  Joins run in ``join_exec.py``, window functions in
+``window.py``.
 
-VALUES and UNNEST (and window functions, which the scalar compiler
-refuses) are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP item.
+Array columns are 2-D (rows x width) with a same-shaped element mask;
+they ride sorts, joins and unions as rows of their tensors, and UNNEST
+turns them into rows x width element rows, the absent ones dead.
 """
 
 from __future__ import annotations
@@ -36,15 +38,10 @@ from .common import (ExecTable, _CHAIN_NODES, _IdentityKeyedCache,
                      _LazyScanColumns, _PlanArtifactCache, _broadcast,
                      _consumer_kinds, _schema_sig)
 from .join_exec import JoinExecMixin
-from .masked import MaskedCol, torch_dtype
+from .masked import MaskedCol, from_numpy, torch_dtype
 from .scalar import ExecError, ScalarCompiler
 
 _LOG = get_channel("exec")
-
-_NOT_PORTED = {
-    nd.LogicalValues: "VALUES (ROADMAP A3)",
-    nd.Unnest: "UNNEST (ROADMAP A3)",
-}
 
 
 class Executor(AggExecMixin, JoinExecMixin):
@@ -247,7 +244,8 @@ class Executor(AggExecMixin, JoinExecMixin):
                 return cols[ref.index]
 
             if isinstance(n, nd.Project):
-                env[n.id] = [_broadcast(self.scalar.evaluate(e, resolve),
+                env[n.id] = [_broadcast(self.scalar.evaluate(e, resolve,
+                                                             row_mask),
                                         nrows) for e in n.exprs]
             else:  # Filter
                 cond = self.scalar.evaluate(n.condition, resolve)
@@ -273,10 +271,53 @@ class Executor(AggExecMixin, JoinExecMixin):
             return self._exec_join(node, results)
         if isinstance(node, nd.LogicalUnion):
             return self._exec_union(node, results)
-        for kind, item in _NOT_PORTED.items():
-            if isinstance(node, kind):
-                raise NotImplementedError(f"{item} is not ported yet")
+        if isinstance(node, nd.LogicalValues):
+            return self._exec_values(node)
+        if isinstance(node, nd.Unnest):
+            return self._exec_unnest(node, results)
         raise ExecError(f"cannot execute node {node!r}")
+
+    def _exec_values(self, node: nd.LogicalValues) -> ExecTable:
+        """Inline literal rows, made on the host and moved to the
+        device."""
+        cols = []
+        for ci, ty in enumerate(node.output_types):
+            vals = [row[ci] for row in node.rows]
+            validity = np.asarray([v is not None for v in vals])
+            data = np.asarray([0 if v is None else v for v in vals],
+                              dtype=ty.physical_dtype())
+            cols.append(from_numpy(data, None if validity.all()
+                                   else validity, self.device))
+        return ExecTable(list(node.fields), list(node.output_types), cols,
+                         len(node.rows))
+
+    def _exec_unnest(self, node: nd.Unnest, results) -> ExecTable:
+        """Explode an array column: rows x width output rows (row-major:
+        the parent row, then its elements); absent elements and dead
+        parent rows are dead in the row mask, so nothing syncs."""
+        src = self._input_table_masked(node.inputs[0], results)
+        fi = node.field_index
+        arr = src.columns[fi]
+        if arr.data.dim() != 2:
+            raise ExecError("UNNEST input is not an array column")
+        n, width = arr.data.shape
+        cols = []
+        for i, c in enumerate(src.columns):
+            if i == fi:
+                cols.append(MaskedCol(arr.data.reshape(n * width)))
+            else:
+                c = _broadcast(c, n)
+                cols.append(MaskedCol(
+                    torch.repeat_interleave(c.data, width, dim=0),
+                    torch.repeat_interleave(c.mask, width, dim=0)
+                    if c.mask is not None else None))
+        live = (arr.mask.reshape(n * width) if arr.mask is not None
+                else torch.ones((n * width,), dtype=torch.bool,
+                                device=self.device))
+        if src.row_mask is not None:
+            live = live & torch.repeat_interleave(src.row_mask, width)
+        return ExecTable(list(node.fields), list(node.output_types), cols,
+                         n * width, live)
 
     def _exec_scan(self, node: nd.Scan) -> ExecTable:
         cols = _LazyScanColumns(node.table, list(node.fields), self.device)
@@ -404,12 +445,9 @@ class Executor(AggExecMixin, JoinExecMixin):
         if not live:
             return ExecTable.empty(list(node.fields), list(node.output_types),
                                    self.device)
-        if any(ty.is_array() for ty in node.output_types):
-            raise NotImplementedError(
-                "array columns are not ported yet (ROADMAP A3)")
 
-        def ones(n):
-            return torch.ones((n,), dtype=torch.bool, device=self.device)
+        def ones(shape):
+            return torch.ones(shape, dtype=torch.bool, device=self.device)
 
         row_mask = None
         if any(p.row_mask is not None for p in live):
@@ -419,12 +457,43 @@ class Executor(AggExecMixin, JoinExecMixin):
         for ci, ty in enumerate(node.output_types):
             dt = torch_dtype(ty.physical_dtype())
             parts_c = [_broadcast(p.columns[ci], p.nrows) for p in live]
+            if ty.is_array():  # widths pad to the widest; pads are absent
+                parts_c = [_as_array(c) for c in parts_c]
+                width = max(c.data.shape[1] for c in parts_c)
+                parts_c = [_pad_width(c, width) for c in parts_c]
             data = torch.cat([c.data.to(dt) for c in parts_c])
             mask = None
             if any(c.mask is not None for c in parts_c):
                 mask = torch.cat([c.mask if c.mask is not None
-                                  else ones(c.data.shape[0])
+                                  else ones(c.data.shape)
                                   for c in parts_c])
             cols.append(MaskedCol(data, mask))
         return ExecTable(list(node.fields), list(node.output_types), cols,
                          sum(p.nrows for p in live), row_mask)
+
+
+def _as_array(col: MaskedCol) -> MaskedCol:
+    """An array-typed union input as 2-D: a 1-D column there is a NULL
+    constant (the padding of an outer join's unmatched side), whose rows
+    hold no element."""
+    if col.data.dim() == 2:
+        return col
+    n = col.data.shape[0]
+    return MaskedCol(torch.zeros((n, 1), dtype=col.data.dtype,
+                                 device=col.data.device),
+                     torch.zeros((n, 1), dtype=torch.bool,
+                                 device=col.data.device))
+
+
+def _pad_width(col: MaskedCol, width: int) -> MaskedCol:
+    """An array column widened to ``width`` elements, the added ones
+    absent."""
+    n, k = col.data.shape
+    if k == width:
+        return col
+    data = torch.zeros((n, width), dtype=col.data.dtype,
+                       device=col.data.device)
+    data[:, :k] = col.data
+    mask = torch.zeros((n, width), dtype=torch.bool, device=col.data.device)
+    mask[:, :k] = True if col.mask is None else col.mask
+    return MaskedCol(data, mask)

@@ -22,8 +22,9 @@ SUM/MIN/MAX/AVG skip nulls and give NULL for all-null groups; AVG is a
 and CORR five moments and a count.  DISTINCT SUM/AVG and COUNT(DISTINCT)
 dedupe (group, value) pairs by a sort; QUANTILE sorts each group's values;
 APPROX_COUNT_DISTINCT and APPROX_QUANTILE build sketches
-(``ops/sketches.py``).  TOP_K/BOTTOM_K produce array columns, which the
-port does not have yet (ROADMAP A3).
+(``ops/sketches.py``); TOP_K/BOTTOM_K sort (group, value) and give each
+group an array of its first k values, short groups padded with absent
+elements.
 """
 
 from __future__ import annotations
@@ -188,6 +189,9 @@ class AggResult:
             means, weights = self.slots
             est = sketches.tdigest_quantile(means, weights, float(spec.arg1))
             return MaskedCol(est.to(out_dt), weights.sum(dim=1) > 0)
+        if k in (AggKind.TOP_K, AggKind.BOTTOM_K):
+            vals, valid = self.slots  # (n, k) in the operand's dtype
+            return MaskedCol(vals, valid)
         if k == AggKind.CORR:
             # Pearson r from the five moment slots
             sx, sy, sxy, sxx, syy, c = self.slots
@@ -200,22 +204,6 @@ class AggResult:
             r = cov / torch.where(denom == 0, 1.0, denom)
             return MaskedCol(r.to(out_dt), (c > 1) & (denom > 0))
         raise NotImplementedError(f"aggregate {k}")
-
-
-def _unsupported(spec: AggSpec) -> None:
-    if spec.kind not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"aggregate {spec.kind.name} gives an array column, which is "
-            "not ported yet (ROADMAP A3)")
-
-
-_PORTED_KINDS = frozenset({
-    AggKind.COUNT, AggKind.SUM, AggKind.AVG, AggKind.MIN, AggKind.MAX,
-    AggKind.STDDEV_SAMP, AggKind.VAR_SAMP, AggKind.CORR, AggKind.SAMPLE,
-    AggKind.SINGLE_VALUE, AggKind.COUNT_DISTINCT,
-    AggKind.APPROX_COUNT_DISTINCT, AggKind.QUANTILE,
-    AggKind.APPROX_QUANTILE,
-})
 
 
 def _sum_plan(spec: AggSpec, gid: torch.Tensor, num: int,
@@ -299,6 +287,9 @@ def _agg_slots(spec: AggSpec, gid: torch.Tensor, n: int) -> AggResult:
         c = sketches.effective_td_c(spec.td_c, n, spec.td_budget)
         return AggResult(list(sketches.tdigest_build(v.data, valid, gid,
                                                      n, c)))
+    if k in (AggKind.TOP_K, AggKind.BOTTOM_K):
+        return AggResult(_group_topk(v, gid, n, num, int(spec.arg1),
+                                     k == AggKind.TOP_K))
     nonnull = (torch.ones(gid.shape, dtype=torch.bool, device=gid.device)
                if valid is None else valid)
     nonnull_per_group = _seg_sum(nonnull, gid, num,
@@ -336,6 +327,26 @@ def _corr_slots(spec: AggSpec, reduce_fn):
         cnt = torch.ones(xf.shape, dtype=torch.int64, device=xf.device)
     return [reduce_fn(xf), reduce_fn(yf), reduce_fn(xf * yf),
             reduce_fn(xf * xf), reduce_fn(yf * yf), reduce_fn(cnt)]
+
+
+def _group_topk(v: MaskedCol, gid: torch.Tensor, n: int, num: int, kk: int,
+                largest: bool) -> List[torch.Tensor]:
+    """TOP_K/BOTTOM_K: rows sorted by (group, value), largest first for
+    TOP_K, ties by row; each group's first ``kk`` non-null values.
+    Returns the (n, kk) values and their validity (False past a group's
+    non-null count).  Rows of gid >= n and NULL values drop out."""
+    vkey = _orderable_int64(v.data)
+    if largest:
+        vkey = ~vkey
+    perm, sg, _ = _sorted_pairs(v, gid, num, vkey)
+    sv = v.data[perm]
+    ones = torch.ones(gid.shape, dtype=torch.bool, device=gid.device)
+    counts = _seg_sum(ones, sg, num, is_ones=True)
+    starts = (torch.cumsum(counts, 0) - counts)[:n]
+    slot = torch.arange(kk, dtype=torch.int64, device=gid.device)
+    idx = torch.clamp(starts[:, None] + slot[None, :], 0,
+                      max(sv.shape[0] - 1, 0))
+    return [sv[idx], slot[None, :] < counts[:n, None]]
 
 
 def _sorted_pairs(v: MaskedCol, gid: torch.Tensor, num: int, vkey):
@@ -468,8 +479,6 @@ def _reduce_specs(specs: Sequence[AggSpec], gid: torch.Tensor, n: int
     """(finalized aggregate columns, exists) over rows with dense group
     ids in [0, n); rows with gid n drop out.  One seg_sums call takes
     exists and every sum-shaped slot."""
-    for spec in specs:
-        _unsupported(spec)
     ones = torch.ones(gid.shape, dtype=torch.bool, device=gid.device)
     batch_cols: List[torch.Tensor] = [ones]
     plans = []

@@ -460,10 +460,12 @@ class JoinExecMixin:
                 c = _take(rhs.columns[ci], ri)
                 if r_valid is None:
                     return c
+                # an array column's rows are 2-D: the row flag spans them
+                rv = r_valid if c.data.dim() == 1 else r_valid[:, None]
                 zero = torch.zeros((), dtype=c.data.dtype,
                                    device=c.data.device)
-                return MaskedCol(torch.where(r_valid, c.data, zero),
-                                 combine_masks(r_valid, c.mask))
+                return MaskedCol(torch.where(rv, c.data, zero),
+                                 combine_masks(rv, c.mask))
             return thunk
 
         cols = _LazyThunkColumns([lthunk(i) for i in range(len(lhs.fields))]
@@ -483,9 +485,11 @@ class JoinExecMixin:
                                          device=dev)])
         if rhs.nrows == 0:  # no build row to read: zeros under NULL
             def rthunk(ci):
-                dt = rhs.columns[ci].data.dtype
+                like = rhs.columns[ci].data  # (0,) or (0, width)
+                shape = (n_un,) + tuple(like.shape[1:])
                 return lambda: MaskedCol(
-                    torch.zeros((n_un,), dtype=dt, device=dev), r_valid)
+                    torch.zeros(shape, dtype=like.dtype, device=dev),
+                    torch.zeros(shape, dtype=torch.bool, device=dev))
 
             l_all = un_idx
             cols = _LazyThunkColumns(

@@ -68,6 +68,14 @@ def _arrow_array(typ: t.Type, data: np.ndarray, mask: Optional[np.ndarray],
                             type=pa.time32("ms"), mask=arrow_mask)
         return pa.array(data.astype(np.int64), type=pa.time64(unit.value),
                         mask=arrow_mask)
+    if typ.is_array():  # a list of the valid elements per row
+        counts = (mask.sum(axis=1) if mask is not None
+                  else np.full(len(data), data.shape[1]))
+        offsets = np.zeros(len(data) + 1, np.int32)
+        np.cumsum(counts, out=offsets[1:])
+        flat = data[mask] if mask is not None else data.reshape(-1)
+        return pa.ListArray.from_arrays(pa.array(offsets, pa.int32()),
+                                        pa.array(flat))
     if typ.is_interval():
         return pa.array(data.astype(np.int64), type=pa.int64(),
                         mask=arrow_mask)
@@ -92,10 +100,17 @@ def to_numpy(table: ExecTable, dicts: DictionaryRegistry
              ) -> Dict[str, np.ndarray]:
     """Column name -> host array in the column's physical dtype, or a
     ``numpy.ma.MaskedArray`` where the column has NULLs; dictionary
-    strings decode to object arrays of str."""
+    strings decode to object arrays of str; an array column becomes an
+    object array holding each row's valid elements."""
     out = {}
     for name, typ, col in zip(table.fields, table.types, table.columns):
         data, mask = _host(col)
+        if typ.is_array():
+            rows = np.empty(len(data), dtype=object)
+            for i, row in enumerate(data):
+                rows[i] = row if mask is None else row[mask[i]]
+            out[name] = rows
+            continue
         if typ.is_dict_encoded_string():
             strings = np.asarray(
                 dicts.get(typ.dict_id).all_strings() or [""], dtype=object)  # type: ignore[attr-defined]

@@ -174,13 +174,21 @@ class ScalarCompiler:
     def _tensor(self, value, dtype: torch.dtype) -> torch.Tensor:
         return torch.tensor(value, dtype=dtype, device=self.device)
 
-    def evaluate(self, expr: ir.Expr, resolver: Resolver) -> MaskedCol:
+    def evaluate(self, expr: ir.Expr, resolver: Resolver,
+                 row_mask: Optional[torch.Tensor] = None) -> MaskedCol:
+        """``row_mask``: the step's live rows, which window functions
+        read (a window after a Filter sees only the surviving rows).
+        The JAX package's ``window_override`` (precomputed windows of the
+        distributed route) belongs to multi-device sessions and is not
+        ported (ROADMAP A9)."""
         cache: Dict[int, MaskedCol] = {}
 
         def ev(e: ir.Expr) -> MaskedCol:
             got = cache.get(id(e))
             if got is None:
-                got = self._eval(e, ev, resolver)
+                got = (self._window(e, ev, row_mask)
+                       if isinstance(e, ir.WindowFunction)
+                       else self._eval(e, ev, resolver))
                 cache[id(e)] = got
             return got
 
@@ -217,10 +225,23 @@ class ScalarCompiler:
             return MaskedCol(v.data.to(torch.int32), v.mask)
         if isinstance(e, ir.FunctionCall):
             return self._function(e, ev)
-        if isinstance(e, ir.WindowFunction):
-            raise NotImplementedError(
-                "window functions are not ported yet (ROADMAP A3)")
         raise ExecError(f"cannot evaluate expression: {e.to_str()}")
+
+    # ------------------------------------------------------------------
+    def _window(self, e: ir.WindowFunction, ev,
+                row_mask: Optional[torch.Tensor]) -> MaskedCol:
+        from .window import compute_window
+
+        args = [ev(a) for a in e.args]
+        parts = [ev(p) for p in e.partition_keys]
+        orders = [ev(o) for o in e.order_keys]
+        nrows = next((c.data.shape[0] for c in args + parts + orders
+                      if c.data.dim() > 0), None)
+        if nrows is None:
+            raise ExecError("window function needs at least one column input")
+        return compute_window(e.kind, args, parts, orders, e.order_desc,
+                              e.arg1, nrows, row_mask, _dtype(e.type),
+                              frame=e.frame)
 
     # ------------------------------------------------------------------
     def _function(self, e: ir.FunctionCall, ev) -> MaskedCol:
@@ -228,6 +249,10 @@ class ScalarCompiler:
         mask = combine_masks(*[v.mask for v in vals])
         xs = [v.data for v in vals]
         out_dt = _dtype(e.type)
+        if e.name == "cardinality" and e.args[0].type.is_array():
+            return self._cardinality(vals[0])
+        if e.name == "array_at" and e.args[0].type.is_array():
+            return self._array_at(vals[0], int(e.args[1].value), out_dt)  # type: ignore[attr-defined]
         if e.name in ("lower", "upper") and e.args[0].type.is_dict_encoded_string():
             return self._string_transform(e.name, e.args[0], vals[0])
         if (e.name == "char_length"
@@ -254,6 +279,30 @@ class ScalarCompiler:
                 f"function {e.name!r}: UDF calls and the remaining builtins "
                 "are not ported yet (ROADMAP A6)")
         return MaskedCol(fn(*xs).to(out_dt), mask)
+
+    def _cardinality(self, a: MaskedCol) -> MaskedCol:
+        """Valid elements per row of an array column (never NULL: a NULL
+        array holds no valid element)."""
+        if a.data.dim() != 2:
+            raise ExecError("CARDINALITY requires an array column")
+        if a.mask is None:
+            return MaskedCol(torch.full(a.data.shape[:1], a.data.shape[1],
+                                        dtype=torch.int32,
+                                        device=a.data.device))
+        return MaskedCol(a.mask.sum(dim=1, dtype=torch.int32))
+
+    def _array_at(self, a: MaskedCol, idx: int,
+                  out_dt: torch.dtype) -> MaskedCol:
+        """Element ``idx`` (0-based) of each row; NULL past the width and
+        where the element is NULL."""
+        n, width = a.data.shape
+        if idx < 0 or idx >= width:
+            return MaskedCol(torch.zeros((n,), dtype=out_dt,
+                                         device=a.data.device),
+                             torch.zeros((n,), dtype=torch.bool,
+                                         device=a.data.device))
+        return MaskedCol(a.data[:, idx].to(out_dt),
+                         a.mask[:, idx] if a.mask is not None else None)
 
     def _string_transform(self, name: str, arg: ir.Expr,
                           v: MaskedCol) -> MaskedCol:

@@ -52,6 +52,24 @@ def changed(sorted_arr: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def span_bounds(boundary: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row, the first and the last position (both inclusive, int64)
+    of the run it lies in, from the run-start bitmap of sorted rows
+    (counterpart of hdk_tpu's ``boundary_spans``, which compacts the
+    run starts with a bool sort).  ``runs`` counts the run starts up to
+    each row, so it is non-decreasing and a run's rows share its value:
+    the run's first row is the first position holding that value and its
+    last row the last one, two binary searches per row (sorted queries,
+    so neighbouring searches share their path).  No sort, no host sync.
+    (``torch.cummax`` over the starts' positions gives the first row too,
+    but on a CUDA tensor of one dimension it scans in one block: 290 ms
+    a call at 100M rows on an H100, PERF.md §6.)"""
+    runs = torch.cumsum(boundary, 0)
+    return (torch.searchsorted(runs, runs),
+            torch.searchsorted(runs, runs, right=True) - 1)
+
+
 class PayloadSet:
     """Deduplicating payload registry for ``sort_with_payload``: the same
     tensor registered twice is gathered once."""

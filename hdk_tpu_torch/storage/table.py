@@ -56,9 +56,11 @@ class Column:
 
     def __init__(self, info: ColumnInfo, data: np.ndarray,
                  validity: Optional[np.ndarray] = None) -> None:
-        if data.ndim != 1:
-            raise NotImplementedError(
-                "array columns are not ported yet (ROADMAP A3)")
+        # ndim 2: a fixed-width array column (rows x width) whose
+        # validity, shaped like it, marks the present elements (lists of
+        # other lengths pad to the widest at ingest)
+        if data.ndim not in (1, 2):
+            raise ValueError("a column is 1-D, or 2-D for an array column")
         if validity is not None:
             if validity.dtype != np.bool_ or validity.shape != data.shape:
                 raise ValueError("validity must be a bool array shaped "
@@ -110,6 +112,8 @@ class Column:
             device_cache_manager().note_drop(self)
 
     def fragment_stats(self, row_start: int, row_end: int) -> FragmentStats:
+        if self.data.ndim > 1:  # array columns carry no range stats
+            return FragmentStats(row_start, row_end, None, None, 0)
         sl = self.data[row_start:row_end]
         if self.validity is not None:
             v = self.validity[row_start:row_end]
@@ -145,6 +149,9 @@ class Table:
         self.fragment_size = max(1, fragment_size)
         self._stats: Dict[Tuple[int, int], FragmentStats] = {}
         self._stats_lock = threading.Lock()
+        # bumped on every append: plan-keyed artifacts (join build tables,
+        # codecache.data_plan_sig) then miss
+        self.generation = 0
 
     def column_names(self, include_rowid: bool = False) -> List[str]:
         return [c.info.name for c in self.columns
@@ -194,3 +201,50 @@ class Table:
                 lo = st.min_val if lo is None else min(lo, st.min_val)
                 hi = st.max_val if hi is None else max(hi, st.max_val)
         return lo, hi, has_nulls
+
+    def append(self, columns: Sequence[Column]) -> None:
+        """Append rows, one column per data column in order (the hidden
+        rowid is rebuilt on demand).  Array columns pad both parts to the
+        wider width, the pads absent."""
+        data_cols = [c for c in self.columns if not c.info.is_rowid]
+        if len(columns) != len(data_cols):
+            raise ValueError("append needs one column per table column")
+        new_cols: List[Column] = []
+        for old, new in zip(data_cols, columns):
+            if old.type.physical_dtype() != new.data.dtype:
+                raise TypeError(f"append dtype mismatch on {old.info.name}")
+            od, ov, nd_, nv = old.data, old.validity, new.data, new.validity
+            if od.ndim == 2 or nd_.ndim == 2:
+                width = max(od.shape[1], nd_.shape[1])
+                od, ov = _pad_width(od, ov, width)
+                nd_, nv = _pad_width(nd_, nv, width)
+            validity = None
+            if ov is not None or nv is not None:
+                validity = np.concatenate([
+                    ov if ov is not None else np.ones(od.shape, np.bool_),
+                    nv if nv is not None else np.ones(nd_.shape, np.bool_)])
+            new_cols.append(Column(old.info, np.concatenate([od, nd_]),
+                                   validity))
+        for c in data_cols:
+            c.drop_device_cache()
+        self.columns = new_cols
+        self._by_name = {c.info.name: c for c in new_cols}
+        self.nrows = len(new_cols[0])
+        with self._stats_lock:
+            self._stats.clear()
+        self.generation += 1
+
+
+def _pad_width(data: np.ndarray, validity: Optional[np.ndarray],
+               width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """An array column's data and element validity widened to
+    ``width``."""
+    if validity is None:
+        validity = np.ones(data.shape, np.bool_)
+    pad = width - data.shape[1]
+    if pad > 0:
+        rows = data.shape[0]
+        data = np.concatenate([data, np.zeros((rows, pad), data.dtype)], 1)
+        validity = np.concatenate([validity, np.zeros((rows, pad), np.bool_)],
+                                  1)
+    return data, validity

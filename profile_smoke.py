@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the sort-route and join queries of
+"""Device-time breakdown of the sort-route, join and window queries of
 chip_smoke.py.
 
     python3 profile_smoke.py [--out FILE.json] [--top N] [--scale F]
                              [--device cuda|cpu]
 
 Runs HN1 and HN2 (high-NDV group-by, 100M rows), holistic Q1-Q3 (10M
-rows), J1 (100M probe rows into a 10M-row build) and TPC-H Q3 (60M
-lineitem rows) on the data and seeds of chip_smoke.py's phases 5-7: two
+rows), J1 (100M probe rows into a 10M-row build), TPC-H Q3 (60M
+lineitem rows) and the window queries W1-W3 (100M taxi rows, 60M
+lineitem rows) on the data and seeds of chip_smoke.py's phases 5-8: two
 warm runs each, then one run under ``torch.profiler``.  Per query it prints the
 host wall time of the profiled run, the device busy time (the union of
 the kernels' intervals), the idle share ``1 - busy / wall``, and the top
@@ -118,6 +119,18 @@ def main() -> None:
     import hdk_tpu_torch
 
     hdk = hdk_tpu_torch.HDK(device=args.device)
+    results = []
+    for run in (_sort_queries, _join_queries, _window_queries):
+        results += run(hdk, hdk_tpu_torch, args)
+    cs.check("jax" not in sys.modules, "jax was imported")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+
+
+def _sort_queries(hdk, hdk_mod, args) -> list:
     ndv_rows = int(cs.HIGH_NDV_ROWS * args.scale)
     ndv_keys = int(cs.HIGH_NDV_KEYS * args.scale)
     hol_rows = int(cs.HOLISTIC_ROWS * args.scale)
@@ -140,7 +153,11 @@ def main() -> None:
                                      lambda: hdk.sql(sql), args.top))
     hdk.drop_table("h")
     cs.check("pandas" not in sys.modules, "pandas was imported")
+    return results
 
+
+def _join_queries(hdk, hdk_mod, args) -> list:
+    results = []
     trips, payments = cs.gen_join(args.scale)
     tj = hdk.import_pydict(trips, name="trips_j")
     pj = hdk.import_pydict(payments, name="payments_j")
@@ -155,16 +172,33 @@ def main() -> None:
                       cs.gen_tpch_q3(args.scale)))
     for name, data in tables.items():
         hdk.import_pydict(data, name=name,
-                          schema=cs.q3_schema(hdk_tpu_torch.types, name))
+                          schema=cs.q3_schema(hdk_mod.types, name))
     results.append(profile_query(
         f"TPC-H Q3 ({tables['lineitem3']['l_orderkey'].size} lineitem rows)",
         lambda: hdk.sql(cs.TPCH_Q3), args.top))
-    cs.check("jax" not in sys.modules, "jax was imported")
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=1)
+    for name in tables:
+        hdk.drop_table(name)
+    return results
+
+
+def _window_queries(hdk, hdk_mod, args) -> list:
+    t = hdk_mod.types
+    rows = int(cs.TAXI_ROWS * args.scale)
+    hdk.import_pydict(cs.gen_taxi(rows), name="trips", schema={
+        "pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)})
+    results = [profile_query(f"W1 ({rows} rows)", lambda: hdk.sql(cs.W1),
+                             args.top),
+               profile_query(f"W2 ({rows} rows)", lambda: hdk.sql(cs.W2),
+                             args.top)]
+    hdk.drop_table("trips")
+    lineitem = cs.gen_tpch_q3(args.scale)[2]
+    hdk.import_pydict(lineitem, name="lineitem3",
+                      schema=cs.q3_schema(t, "lineitem3"))
+    results.append(profile_query(
+        f"W3 ({lineitem['l_orderkey'].size} lineitem rows)",
+        lambda: hdk.sql(cs.W3), args.top))
+    hdk.drop_table("lineitem3")
+    return results
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: each against its plain version, in both
 the shared-memory and the global-atomic mode and over the sorted group
 ids of the sort-based group-by, K1 at the shapes its design treats
-apart, and the main path, the sort route, scalar subqueries and joins on
-a CUDA session against the same session on the CPU.  Skips where there
+apart, and the main path, the sort route, scalar subqueries, joins,
+window functions and array columns on a CUDA session against the same
+session on the CPU.  Skips where there
 is no card.  On the card, without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -387,6 +388,20 @@ def test_groupby_sums2_modes(cuda, case, mode):
     assert torch.equal(got, want)
 
 
+def _same_results(queries, out, f32_rtol=1e-9):
+    """Each query's CPU and CUDA results hold the same rows: integers
+    equal, floats to rtol 1e-9, float32 to ``f32_rtol``."""
+    for sql, cpu, gpu in zip(queries, *out):
+        assert list(cpu) == list(gpu), sql
+        for (cn, cv), (gn, gv) in zip(_rows(cpu), _rows(gpu)):
+            assert np.array_equal(cn, gn), sql
+            if cv.dtype.kind == "f":
+                rtol = f32_rtol if cv.dtype == np.float32 else 1e-9
+                np.testing.assert_allclose(gv, cv, rtol=rtol, err_msg=sql)
+            else:
+                assert np.array_equal(gv, cv), sql
+
+
 def _rows(out):
     """(NULL flags, values) per column of a to_numpy result, rows in
     lexicographic order of both."""
@@ -453,11 +468,63 @@ def test_joins_on_the_card(cuda, monkeypatch):
             got.append(hdk.sql(sql).to_numpy())
             assert hdk._executor._join_route == route, sql
         out.append(got)
-    for (sql, _), cpu, gpu in zip(queries, *out):
-        assert list(cpu) == list(gpu), sql
-        for (cn, cv), (gn, gv) in zip(_rows(cpu), _rows(gpu)):
-            assert np.array_equal(cn, gn), sql
-            if cv.dtype.kind == "f":
-                np.testing.assert_allclose(gv, cv, rtol=1e-9, err_msg=sql)
-            else:
-                assert np.array_equal(gv, cv), sql
+    _same_results([sql for sql, _ in queries], out)
+
+
+def test_windows_and_arrays_on_the_card(cuda, monkeypatch):
+    """chip_smoke.py phase 8 (W1-W4) at a small size on a CUDA session
+    against a CPU session: the same rows, W3 through K1 and K4, an integer
+    SUM OVER (PARTITION BY) through K3, no plain version on a CUDA
+    tensor."""
+    import chip_smoke as cs
+
+    taxi = cs.gen_taxi(300_000)
+    lineitem = cs.gen_tpch_q3(0.003)[2]
+    values, alive = cs.gen_arrays(50_000)
+    ts = {"pickup_datetime": hdk_tpu_torch.types.timestamp(
+        hdk_tpu_torch.types.TimeUnit.SECOND, False)}
+
+    def unnest_topk(hdk):
+        ht = hdk.scan("trips")
+        res = ht.agg("passenger_count",
+                     ht["total_amount"].top_k(5).name("tk"),
+                     ht["trip_distance"].bottom_k(5).name("bk")).run()
+        return res.scan.unnest("tk").unnest("bk").run()
+
+    def arrays(hdk):
+        ha = hdk.scan("arrs")
+        return ha.proj(n=ha["xs"].cardinality(), x1=ha["xs"].at(1)).run()
+
+    # an integer SUM over each order's rows: K3 on the window path
+    int_sum = ("SELECT l_orderkey, SUM(l_orderkey) OVER (PARTITION BY "
+               "l_orderkey) AS s, COUNT(*) OVER (PARTITION BY l_orderkey) "
+               "AS n FROM lineitem3")
+    queries = [cs.W1, cs.W1_RANKS, cs.W2, cs.W3, int_sum, unnest_topk,
+               arrays, lambda hdk: hdk.scan("arrs").unnest("xs").agg(
+                   "xs", "count").run()]
+    want = {cs.W3: cs.WINDOW_KERNELS,
+            int_sum: ("seg_sums_exact", "count_hist")}
+    out = []
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            _refuse_plain_versions(monkeypatch)
+        hdk = hdk_tpu_torch.HDK(device=device)
+        hdk.import_pydict(dict(taxi), name="trips", schema=ts)
+        hdk.import_pydict(lineitem, name="lineitem3",
+                          schema=cs.q3_schema(hdk_tpu_torch.types,
+                                              "lineitem3"))
+        hdk.import_pydict({"xs": np.ma.MaskedArray(values, ~alive)},
+                          name="arrs")
+        got = []
+        for q in queries:
+            before = hist.launches()
+            got.append((hdk.sql(q) if isinstance(q, str) else q(hdk))
+                       .to_numpy())
+            if device == "cuda" and q in want:
+                used = {k: hist.launches()[k] - before[k] for k in before}
+                assert all(used[k] > 0 for k in want[q]), (q, used)
+        out.append(got)
+    # FLOAT window sums are float64 sums rounded to float32 (the
+    # tolerance of FLOAT outputs in tests/test_torch_window.py)
+    _same_results([q if isinstance(q, str) else q.__name__
+                   for q in queries], out, f32_rtol=1e-6)

@@ -186,11 +186,21 @@ def test_nogroup_agg(masked):
 
 
 def test_unported_aggregates_raise():
-    # TOP_K/BOTTOM_K give array columns, which come with ROADMAP A3
-    col = _tcol(np.arange(10))
-    k = hdk_tpu_torch.ir.expr.AggKind
-    for kind in (k.TOP_K, k.BOTTOM_K):
-        spec = tgb.AggSpec(kind, col, hdk_tpu_torch.types.int64(False),
-                           arg1=3)
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            tgb.nogroup_agg([spec], 10, None, "cpu")
+    """TOP_K/BOTTOM_K (array columns, ROADMAP A3) are no longer refused:
+    as scalar aggregates they equal the JAX package's, NULL values and a
+    filter dropping out, a k above the live count leaving absent elements
+    (the name is kept from when they raised)."""
+    rng = np.random.default_rng(3)
+    data = rng.integers(-50, 50, 10)
+    mask = rng.random(10) >= 0.3
+    rm = rng.random(10) >= 0.2
+    for kind in ("TOP_K", "BOTTOM_K"):
+        for k in (3, 12):
+            got = tgb.nogroup_agg([tgb.AggSpec(
+                tgb.AggKind[kind], _tcol(data, mask),
+                hdk_tpu_torch.types.int64(False), arg1=k)], 10,
+                torch.from_numpy(rm), "cpu")
+            want = jgb.nogroup_agg([jgb.AggSpec(
+                jgb.AggKind[kind], _jcol(data, mask),
+                hdk_tpu.types.int64(False), arg1=k)], 10, jnp.asarray(rm))
+            _same_cols(got, want, exact_upto=1)

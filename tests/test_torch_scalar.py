@@ -17,7 +17,7 @@ import hdk_tpu_torch
 from hdk_tpu_torch.exec.masked import from_numpy
 from hdk_tpu_torch.exec.scalar import ScalarCompiler as TorchScalar
 
-from torch_twin import twin_sessions
+from torch_twin import assert_same, twin_sessions
 
 ROWS = 3000
 
@@ -148,6 +148,9 @@ def test_scalar_matches_jax(twins, name):
 
 
 def test_window_function_is_refused(twins):
-    _, pt = twins
-    with pytest.raises(NotImplementedError, match="window"):
-        pt.sql("SELECT a, ROW_NUMBER() OVER (ORDER BY a) FROM t").to_pandas()
+    """Window functions are no longer refused: the query runs and equals
+    the JAX package (the name is kept from when it raised; their tests:
+    tests/test_torch_window.py)."""
+    jx, pt = twins
+    sql = "SELECT a, ROW_NUMBER() OVER (ORDER BY a) FROM t"
+    assert_same(jx.sql(sql), pt.sql(sql))

@@ -143,16 +143,19 @@ def test_result_chaining(taxi):
 
 @pytest.mark.parametrize("what", ["values", "unnest"])
 def test_values_and_unnest_are_refused(taxi, what):
-    """VALUES (a FROM-less SELECT) and UNNEST raise naming ROADMAP A3
-    (joins run: tests/test_torch_join*.py); UNNEST needs an array column,
-    whose import raises."""
-    _, pt = taxi
-    with pytest.raises(NotImplementedError, match="A3"):
+    """VALUES (a FROM-less SELECT) and UNNEST of an imported array column
+    are no longer refused: each runs and equals the JAX package (the name
+    is kept from when they raised; their tests:
+    tests/test_torch_arrays.py)."""
+    out = []
+    for hdk in taxi:
         if what == "values":
-            pt.sql("SELECT 1 + 1 AS a").to_arrow()
+            out.append(hdk.sql("SELECT 1 + 1 AS a"))
         else:
-            pt.import_pydict({"id": [1, 2], "xs": [[1, 2], [3, 4]]},
-                             name="arr_t").unnest("xs").run()
+            out.append(hdk.import_pydict(
+                {"id": [1, 2], "xs": [[1, 2], [3, 4]]},
+                name=f"arr_{what}").unnest("xs").run())
+    assert_same(*out)
 
 
 def test_sort_based_groupby_is_refused(nulls):

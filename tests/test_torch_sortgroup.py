@@ -234,10 +234,15 @@ def test_key_types(typed_twins, sql):
 
 
 def test_top_k_names_roadmap_a3(twins):
-    _name, (_jx, pt) = twins
-    h = pt.scan("h")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        h.agg("g", h["v"].top_k(3)).run()
+    """TOP_K (ROADMAP A3) is no longer refused: it runs on each session
+    config and equals the JAX package (the name is kept from when it
+    raised; its tests: tests/test_torch_arrays.py)."""
+    _name, sessions = twins
+    out = []
+    for hdk in sessions:
+        h = hdk.scan("h")
+        out.append(h.agg("g", h["v"].top_k(3), h["v"].bottom_k(2)).run())
+    assert_same(*out, ordered=False)
 
 
 # -- the NDV estimator -------------------------------------------------------

@@ -79,16 +79,32 @@ def _same_stats(a: tuple, b: tuple) -> bool:
                    and np.isnan(x) and np.isnan(y)) for x, y in zip(a, b))
 
 
+def _list_rows(col) -> np.ndarray:
+    """A list column as an object array of numpy arrays, one per row (the
+    row's elements; a NULL row holds none)."""
+    arr = col.combine_chunks()
+    flat = arr.flatten().to_numpy(zero_copy_only=False)
+    offsets = arr.offsets.to_numpy()
+    rows = np.empty(len(arr), dtype=object)
+    for i in range(len(arr)):
+        rows[i] = flat[offsets[i]:offsets[i + 1]]
+    return rows
+
+
 def _columns(res) -> Dict[str, tuple]:
     """Per column of a result: (values, NULL flags, pandas dtype).  The
     flags are the Arrow validity bitmap's; numbers keep their Arrow type
-    (NULLs filled with 0), so integers compare exactly; strings and
-    timestamps come as pandas reads them.  Row order: the result's."""
+    (NULLs filled with 0), so integers compare exactly; a list column
+    gives each row's elements (dtype "list"); strings and timestamps come
+    as pandas reads them.  Row order: the result's."""
     table = res.to_arrow()
     frame = table.to_pandas()
     out = {}
     for name, col in zip(table.column_names, table.columns):
         nulls = col.is_null().to_numpy()
+        if pa.types.is_list(col.type):
+            out[name] = (_list_rows(col), nulls, "list")
+            continue
         if (pa.types.is_integer(col.type) or pa.types.is_floating(col.type)
                 or pa.types.is_boolean(col.type)):
             fill = False if pa.types.is_boolean(col.type) else 0
@@ -101,8 +117,9 @@ def _columns(res) -> Dict[str, tuple]:
 
 def _canonical_order(cols: Dict[str, tuple]) -> np.ndarray:
     """Row order of ``canon`` over the values and the NULL flags."""
-    frame = pd.DataFrame({**{f"v{i}": v for i, (v, _, _) in
-                             enumerate(cols.values())},
+    frame = pd.DataFrame({**{f"v{i}": (v if d != "list" else
+                                       [repr(r.tolist()) for r in v])
+                             for i, (v, _, d) in enumerate(cols.values())},
                           **{f"n{i}": n for i, (_, n, _) in
                              enumerate(cols.values())}})
     frame["row"] = np.arange(len(frame))
@@ -114,7 +131,10 @@ def assert_same(res_jax, res_torch, ordered: bool = True,
     """Equal results, column by column: the NULL positions (Arrow
     validity), then among the valid float values the NaN positions, then
     the values: keys, counts and integers exactly, floats to ``F64_RTOL``
-    (``F32_AVG_RTOL`` for the columns named in ``f32_avg``)."""
+    (``F32_AVG_RTOL`` for the columns named in ``f32_avg``).  A list
+    column compares each row's element count (which elements are valid:
+    NULL elements are left out of a list) before its elements, as
+    above."""
     a = _columns(res_jax)
     b = _columns(res_torch)
     assert list(a) == list(b)
@@ -129,6 +149,16 @@ def assert_same(res_jax, res_torch, ordered: bool = True,
         (x, xn, xd), (y, yn, yd) = a[c], b[c]
         assert (xn == yn).all(), f"NULLs differ in {c}: {xn} vs {yn}"
         xv, yv = x[~xn], y[~yn]
+        if xd == "list" or yd == "list":
+            assert xd == yd, (c, xd, yd)
+            xl = np.asarray([len(r) for r in xv], dtype=np.int64)
+            yl = np.asarray([len(r) for r in yv], dtype=np.int64)
+            assert (xl == yl).all(), \
+                f"element validity differs in {c}: {xl} vs {yl}"
+            if not xl.sum():
+                continue
+            xv, yv = np.concatenate(list(xv)), np.concatenate(list(yv))
+            xd, yd = xv.dtype, yv.dtype
         if xv.dtype.kind == "f" or yv.dtype.kind == "f":
             xv, yv = xv.astype(np.float64), yv.astype(np.float64)
             xnan, ynan = np.isnan(xv), np.isnan(yv)
