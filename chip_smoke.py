@@ -47,11 +47,20 @@ Phases, each printed as it runs:
      TOP_K/BOTTOM_K per passenger count with UNNEST and an imported
      10M x 4 int32 array column (CARDINALITY, a subscript, UNNEST and a
      GROUP BY count), each against numpy with its cold time, median warm
-     latency and rows/s.
-Phases 5-6 are the sort route, phase 7 the join path and phase 8 the
-window path: each phase's kernel launches count apart from the others',
-every kernel must launch on phases 4 and 5-6, the kernels of TPC-H Q3 on
-phase 7 and W3's (K1 and K4) on phase 8.  The line
+     latency and rows/s;
+  9. the executor's controls, in a session of their own: TPC-H Q1 and Q6
+     streamed chunk by chunk over 600M lineitem rows (SF100; more than
+     the scan budget) beside the rate of a pinned 1 GiB host-to-device
+     copy, Q1 under the watchdog (a long time limit streams one fragment
+     a chunk; a 1 ms limit must raise), EXPLAIN ANALYZE of the streamed
+     Q1, fragment skipping over 100M taxi rows in pickup order (one month
+     of 4 years), and the measured choice between the dense and the sort
+     route of a 1000-group GROUP BY; each against numpy.
+Phases 5-6 are the sort route, phase 7 the join path, phase 8 the
+window path and phase 9 the controls: each phase's kernel launches count
+apart from the others', every kernel must launch on phases 4 and 5-6,
+the kernels of TPC-H Q3 on phase 7, W3's (K1 and K4) on phase 8 and the
+streamed Q1's (K1, K3 and K4) on phase 9.  The line
 before the last is a JSON object with the per-kernel results (every
 phase-3 case under ``cases``); the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
@@ -467,9 +476,11 @@ def kernel_phase(hist, entries, sorted_entries, card, main_shapes=(),
 
 # -- phase 4 ------------------------------------------------------------
 
-def timed_query(run, card: str, label: str, rows: int, hist, want_kernels):
+def timed_query(run, card: str, label: str, rows: int, hist, want_kernels,
+                report=None):
     """Cold run (checked), the kernels it must have launched, and the
-    median warm latency of three more runs."""
+    median warm latency of three more runs; ``report`` (a dict) receives
+    the cold seconds and the warm latency."""
     before = hist.launches()
     t0 = time.perf_counter()
     res = run()
@@ -487,6 +498,8 @@ def timed_query(run, card: str, label: str, rows: int, hist, want_kernels):
     lat = statistics.median(warm)
     log(f"query {label}: rows={rows} cold_s={cold!r} warm_latency_s={lat!r}"
         f" rows_per_s={rows / lat!r} launches={used} [{card}]")
+    if report is not None:
+        report.update(cold_s=cold, warm_s=lat)
     return res
 
 
@@ -584,39 +597,11 @@ def tpch_phase(hdk_mod, hdk, card, hist):
     res = timed_query(lambda: hdk.sql(TPCH_Q1), card, "tpch_q1",
                       LINEITEM_ROWS, hist,
                       ["groupby_sums", "seg_sums_exact", "count_hist"])
-    cols = list(res.to_numpy().values())
-    keep = li["l_shipdate"] <= epoch("1998-09-02T00:00:00")
-    rf = li["l_returnflag"][keep].astype(np.int64)
-    ls = li["l_linestatus"][keep].astype(np.int64)
-    uniq, inv = group_ids(rf, ls)
-    qty = li["l_quantity"][keep].astype(np.int64)
-    price = li["l_extendedprice"][keep]
-    disc = li["l_discount"][keep]
-    tax = li["l_tax"][keep]
-    cnt = np.bincount(inv)
-    fsum = lambda w: np.bincount(inv, weights=w)
-    qsum = np.zeros(len(uniq), np.int64)
-    np.add.at(qsum, inv, qty)
-    equal(np.stack([cols[0], cols[1]], 1), uniq, "tpch_q1 keys")
-    equal(cols[2], qsum, "tpch_q1 sum_qty")
-    close(cols[3], fsum(price), 1e-9, "tpch_q1 sum_base_price")
-    close(cols[4], fsum(price * (1 - disc)), 1e-9, "tpch_q1 sum_disc_price")
-    close(cols[5], fsum(price * (1 - disc) * (1 + tax)), 1e-9,
-          "tpch_q1 sum_charge")
-    close(cols[6], qsum / cnt, 1e-9, "tpch_q1 avg_qty")
-    close(cols[7], fsum(price) / cnt, 1e-9, "tpch_q1 avg_price")
-    close(cols[8], fsum(disc) / cnt, 1e-9, "tpch_q1 avg_disc")
-    equal(cols[9], cnt, "tpch_q1 count")
+    tpch_q1_check(list(res.to_numpy().values()), li, "tpch_q1")
 
     res = timed_query(lambda: hdk.sql(TPCH_Q6), card, "tpch_q6",
                       LINEITEM_ROWS, hist, [])
-    (got,) = res.to_numpy().values()
-    sel = ((li["l_shipdate"] >= epoch("1994-01-01T00:00:00"))
-           & (li["l_shipdate"] < epoch("1995-01-01T00:00:00"))
-           & (li["l_discount"] >= 0.05) & (li["l_discount"] <= 0.07)
-           & (li["l_quantity"] < 24))
-    close(got, [np.sum(li["l_extendedprice"][sel] * li["l_discount"][sel])],
-          1e-9, "tpch_q6 revenue")
+    tpch_q6_check(res, li, "tpch_q6")
 
     res = timed_query(lambda: hdk.sql(SCALAR_SUBQUERY), card,
                       "scalar_subquery", LINEITEM_ROWS, hist, [])
@@ -626,6 +611,60 @@ def tpch_phase(hdk_mod, hdk, card, hist):
     equal(count, [above.size], "scalar_subquery count")
     close(total, [above.sum()], 1e-9, "scalar_subquery sum")
     hdk.drop_table("lineitem")
+
+
+ORACLE_SLICE = 50_000_000  # rows a numpy oracle reads at a time
+
+
+def tpch_q1_check(cols, li, label):
+    """TPC-H Q1's ten columns against numpy, read in slices of the table
+    (the 6 (returnflag, linestatus) groups): keys, counts and the integer
+    sum exactly, float sums and averages to rtol 1e-9."""
+    cut = epoch("1998-09-02T00:00:00")
+    cnt = np.zeros(6, np.int64)
+    qsum = np.zeros(6, np.int64)
+    fs = np.zeros((4, 6))
+    for s in range(0, li["l_shipdate"].size, ORACLE_SLICE):
+        sl = slice(s, s + ORACLE_SLICE)
+        keep = li["l_shipdate"][sl] <= cut
+        code = (li["l_returnflag"][sl][keep].astype(np.int64) * 2
+                + li["l_linestatus"][sl][keep])
+        price = li["l_extendedprice"][sl][keep]
+        disc = li["l_discount"][sl][keep]
+        tax = li["l_tax"][sl][keep]
+        cnt += np.bincount(code, minlength=6)
+        qsum += np.bincount(code, weights=li["l_quantity"][sl][keep],
+                            minlength=6).astype(np.int64)
+        for j, w in enumerate((price, price * (1 - disc),
+                               price * (1 - disc) * (1 + tax), disc)):
+            fs[j] += np.bincount(code, weights=w, minlength=6)
+    present = cnt > 0
+    codes = np.flatnonzero(present)
+    cnt, qsum, fs = cnt[present], qsum[present], fs[:, present]
+    equal(np.stack([cols[0], cols[1]], 1),
+          np.stack([codes // 2, codes % 2], 1), f"{label} keys")
+    equal(cols[2], qsum, f"{label} sum_qty")
+    close(cols[3], fs[0], 1e-9, f"{label} sum_base_price")
+    close(cols[4], fs[1], 1e-9, f"{label} sum_disc_price")
+    close(cols[5], fs[2], 1e-9, f"{label} sum_charge")
+    close(cols[6], qsum / cnt, 1e-9, f"{label} avg_qty")
+    close(cols[7], fs[0] / cnt, 1e-9, f"{label} avg_price")
+    close(cols[8], fs[3] / cnt, 1e-9, f"{label} avg_disc")
+    equal(cols[9], cnt, f"{label} count")
+
+
+def tpch_q6_check(res, li, label):
+    """TPC-H Q6's revenue against numpy (slices of the table), rtol 1e-9."""
+    (got,) = res.to_numpy().values()
+    lo, hi = epoch("1994-01-01T00:00:00"), epoch("1995-01-01T00:00:00")
+    want = 0.0
+    for s in range(0, li["l_shipdate"].size, ORACLE_SLICE):
+        sl = slice(s, s + ORACLE_SLICE)
+        ship, disc = li["l_shipdate"][sl], li["l_discount"][sl]
+        sel = ((ship >= lo) & (ship < hi) & (disc >= 0.05) & (disc <= 0.07)
+               & (li["l_quantity"][sl] < 24))
+        want += np.sum(li["l_extendedprice"][sl][sel] * disc[sel])
+    close(got, [want], 1e-9, f"{label} revenue")
 
 
 def nulls_phase(hdk, card, hist):
@@ -963,6 +1002,7 @@ def join_query(run, card, label, rows, hist, executor, route, want=()):
     cold time, the median warm latency and rows/s."""
     before = hist.launches()
     builds0 = executor._join_builds
+    plans0 = len(executor._plan_feedback._cold)
     t0 = time.perf_counter()
     res = run()
     res.block()
@@ -972,6 +1012,20 @@ def join_query(run, card, label, rows, hist, executor, route, want=()):
     used = {k: hist.launches()[k] - before[k] for k in before}
     for k in want:
         check(used[k] > 0, f"{label}: kernel {k} never launched ({used})")
+    if len(executor._plan_feedback._cold) > plans0:
+        # the eager-aggregation rewrite fired: the plan A/B runs the
+        # rewrite again (timed), then the original plan cold and timed,
+        # which builds the original's join tables; the warm runs below
+        # take the faster plan
+        explore = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run().block()
+            explore.append(time.perf_counter() - t0)
+        measured = {k[1]: v for k, v in executor._feedback._t.items()
+                    if k[0].startswith("eagerplan|")}
+        log(f"join {label}: plan A/B exploration runs_s={explore!r} "
+            f"measured_s={measured!r} [{card}]")
     builds = executor._join_builds - builds0
     warm = []
     for _ in range(3):
@@ -1368,6 +1422,200 @@ def window_phase(hdk_mod, card, hist, device="cuda", taxi_rows=TAXI_ROWS,
     hdk.drop_table("arrs")
 
 
+# -- phase 9: executor controls --------------------------------------------
+
+# TPC-H lineitem at SF100 (600M rows; 6M rows a scale factor): Q1 reads
+# 35 bytes a row (21.0 GB) and Q6 25 (15.0 GB), both over the default scan
+# budget (half of the 12 GiB device cache budget), so both stream
+STREAM_LINEITEM_ROWS = 600_000_000
+Q1_ROW_BYTES = 35  # l_quantity, l_returnflag, l_linestatus 1 each; 4 x 8
+Q6_ROW_BYTES = 25  # l_quantity 1; l_extendedprice, l_discount, l_shipdate
+STREAM_KERNELS = ("groupby_sums", "seg_sums_exact", "count_hist")
+MONTH_Q = ("SELECT passenger_count, COUNT(*) AS c FROM trips_sorted "
+           "WHERE pickup_datetime >= TIMESTAMP '2014-03-01 00:00:00' "
+           "AND pickup_datetime < TIMESTAMP '2014-04-01 00:00:00' "
+           "GROUP BY passenger_count")
+NULLS_GROUP_Q = ("SELECT g, COUNT(*), COUNT(x), SUM(x), AVG(y) FROM t "
+                 "GROUP BY g")
+
+
+def h2d_rates():
+    """(pinned, pageable) host-to-device bytes/s of a 1 GiB copy: the
+    pinned rate bounds a stream that copies its chunks from the host."""
+    n = 1 << 30
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.from_numpy(np.ones(n, np.uint8))
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    rates = tuple(n / (cuda_ms(lambda h=h: dev.copy_(h, non_blocking=True))
+                       / 1e3) for h in (pinned, pageable))
+    del pinned, pageable, dev
+    return rates
+
+
+def streamed_query(hdk, sql, label, rows, row_bytes, card, hist, want,
+                   bound_bps):
+    """``timed_query`` of a query that must stream (every run in two or
+    more chunks), with its GB/s beside the pinned-copy bound."""
+    ex = hdk._executor
+    chunks = []
+
+    def run():
+        res = hdk.sql(sql)
+        res.block()
+        chunks.append(ex._frag_stream_chunks)
+        return res
+
+    report = {}
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    res = timed_query(run, card, label, rows, hist, want, report)
+    check(all(c is not None and c >= 2 for c in chunks),
+          f"{label}: a run did not stream ({chunks} chunks)")
+    gbps = rows * row_bytes / report["warm_s"] / 1e9
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.cuda.is_available() else None)
+    log(f"stream {label}: chunks={chunks[0]} used_bytes={rows * row_bytes} "
+        f"warm_ms={report['warm_s'] * 1e3!r} rows_per_s="
+        f"{rows / report['warm_s']!r} GB_per_s={gbps!r} "
+        f"pinned_h2d_GB_per_s={bound_bps / 1e9!r} "
+        f"bound_ms={rows * row_bytes / bound_bps * 1e3!r} "
+        f"peak_device_bytes={peak} [{card}]")
+    return res
+
+
+def controls_phase(hdk_mod, card, hist, device="cuda",
+                   lineitem_rows=STREAM_LINEITEM_ROWS, taxi_rows=TAXI_ROWS,
+                   nulls_rows=NULLS_ROWS, want=STREAM_KERNELS, config=None):
+    """Phase 9 in a session of its own: TPC-H Q1 and Q6 streamed over a
+    lineitem table larger than the scan budget, Q1 under the watchdog
+    (a long limit chunks one fragment at a time; a 1 ms limit raises),
+    EXPLAIN ANALYZE of the streamed Q1, fragment skipping over
+    time-ordered taxi rows, and the measured route choice of a GROUP BY
+    in the tuning window; each against numpy."""
+    t_phase = time.perf_counter()
+    hdk = hdk_mod.HDK(device=device, **(config or {}))
+    ex = hdk._executor
+    ExecError = hdk_mod.exec.scalar.ExecError
+    pinned_bps, pageable_bps = (h2d_rates() if device == "cuda"
+                                else (float("inf"), float("inf")))
+    log(f"host-to-device copy of 1 GiB: pinned {pinned_bps / 1e9!r} GB/s, "
+        f"pageable {pageable_bps / 1e9!r} GB/s [{card}]")
+
+    t0 = time.perf_counter()
+    li = gen_lineitem(lineitem_rows)
+    t = hdk_mod.types
+    hdk.import_pydict(li, name="lineitem", schema={
+        "l_shipdate": t.timestamp(t.TimeUnit.SECOND, False)})
+    log(f"controls phase: lineitem {lineitem_rows} rows "
+        f"({len(hdk._schema.get('lineitem').fragments)} fragments) "
+        f"generated in {time.perf_counter() - t0:.1f} s")
+
+    res = streamed_query(hdk, TPCH_Q1, "stream_tpch_q1", lineitem_rows,
+                         Q1_ROW_BYTES, card, hist, want, pinned_bps)
+    tpch_q1_check(list(res.to_numpy().values()), li, "stream_tpch_q1")
+    res = streamed_query(hdk, TPCH_Q6, "stream_tpch_q6", lineitem_rows,
+                         Q6_ROW_BYTES, card, hist, (), pinned_bps)
+    tpch_q6_check(res, li, "stream_tpch_q6")
+
+    # the watchdog: a time limit streams one fragment a chunk and checks
+    # the deadline between chunks
+    t0 = time.perf_counter()
+    res = hdk.sql(TPCH_Q1, watchdog_time_limit_ms=600_000).block()
+    secs = time.perf_counter() - t0
+    frags = len(hdk._schema.get("lineitem").fragments)
+    check(ex._frag_stream_chunks == frags,
+          f"watchdog Q1: {ex._frag_stream_chunks} chunks, want {frags}")
+    tpch_q1_check(list(res.to_numpy().values()), li, "watchdog_tpch_q1")
+    log(f"watchdog Q1 (limit 600000 ms): {frags} chunks in {secs!r} s, "
+        f"result equal [{card}]")
+    try:
+        hdk.sql(TPCH_Q1, watchdog_time_limit_ms=1).block()
+        raised = None
+    except ExecError as err:
+        raised = err
+    check(raised is not None and "watchdog" in str(raised),
+          "watchdog Q1 (limit 1 ms) did not raise")
+    log(f"watchdog Q1 (limit 1 ms) raised: {raised}; stream chunks "
+        f"{ex._frag_stream_chunks}")
+
+    # EXPLAIN ANALYZE of the streamed Q1: every line [ms, rows], 6 groups
+    t0 = time.perf_counter()
+    text = hdk.explain(TPCH_Q1, analyze=True)
+    plan = text.split("\n-- ")[0].splitlines()
+    for line in text.splitlines():
+        log(f"explain analyze: {line}")
+    check(all(line.endswith(" rows]") and " ms, " in line for line in plan),
+          "explain analyze: a plan line without [ms, rows]")
+    check(plan[0].endswith(", 6 rows]"), f"explain analyze root: {plan[0]}")
+    check(ex._frag_stream_chunks >= 2, "explain analyze: Q1 did not stream")
+    log(f"explain analyze of the streamed Q1 in "
+        f"{time.perf_counter() - t0:.3f} s [{card}]")
+    del li, res
+    drop_tables(hdk, "lineitem")
+
+    # fragment skipping: taxi rows in pickup order, as trip files are
+    # published month by month; one month lies in one fragment
+    t0 = time.perf_counter()
+    taxi = gen_taxi(taxi_rows)
+    taxi["pickup_datetime"].sort()
+    hdk.import_pydict(taxi, name="trips_sorted", schema={
+        "pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)})
+    log(f"controls phase: sorted taxi {taxi_rows} rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stats = []
+
+    def month():
+        res = hdk.sql(MONTH_Q)
+        stats.append(ex._frag_prune_stats)
+        return res
+
+    res = timed_query(month, card, "pruned_month", taxi_rows, hist, ())
+    check(all(st is not None and st["selected"] < st["total"]
+              for st in stats), f"pruned_month: fragments {stats}")
+    sel = ((taxi["pickup_datetime"] >= epoch("2014-03-01T00:00:00"))
+           & (taxi["pickup_datetime"] < epoch("2014-04-01T00:00:00")))
+    counts = np.bincount(taxi["passenger_count"][sel], minlength=9)
+    out = res.to_numpy()
+    present = np.flatnonzero(counts)
+    order = np.argsort(out["passenger_count"])
+    equal(out["passenger_count"][order], present, "pruned_month keys")
+    equal(out["c"][order], counts[present], "pruned_month count")
+    log(f"pruned_month: fragments {stats[0]['selected']} of "
+        f"{stats[0]['total']}, {int(sel.sum())} rows in the month [{card}]")
+    del taxi, sel
+    drop_tables(hdk, "trips_sorted")
+
+    # route feedback: a GROUP BY over 1000 dense entries (in the window
+    # where both routes are timed) explores "perfect", then "sort"
+    data = gen_nulls(nulls_rows)
+    hdk.import_pydict(data, name="t")
+    outs = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        outs.append(list(hdk.sql(NULLS_GROUP_Q).block().to_numpy()
+                         .values()))
+        log(f"route feedback run {i}: {time.perf_counter() - t0!r} s")
+    sigs = {g for g, _r in ex._feedback._t if not g.startswith("eagerplan|")}
+    check(len(sigs) == 1, f"route feedback: {len(sigs)} tuned plans")
+    measured = ex._feedback.measured(next(iter(sigs)))
+    check(set(measured) == {"perfect", "sort"},
+          f"route feedback: routes measured {measured}")
+    for cols in outs[1:]:
+        order0, order1 = np.argsort(outs[0][0]), np.argsort(cols[0])
+        for j, (a, b) in enumerate(zip(outs[0], cols)):
+            a, b = np.ma.asarray(a)[order0], np.ma.asarray(b)[order1]
+            check(np.array_equal(np.ma.getmaskarray(a), np.ma.getmaskarray(b))
+                  and (np.allclose(a.compressed(), b.compressed(), rtol=1e-9,
+                                   atol=0) if j == 4 else
+                       np.array_equal(a.compressed(), b.compressed())),
+                  f"route feedback: column {j} differs between routes")
+    log(f"route feedback: measured_s={measured!r}, all 4 results equal "
+        f"[{card}]")
+    hdk.drop_table("t")
+    log(f"controls phase: {time.perf_counter() - t_phase:.1f} s including "
+        f"data generation and the numpy oracles")
+
+
 # slots of each kernel's headline case in the kernels line
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
@@ -1430,7 +1678,8 @@ def main() -> None:
     # phase 4: the main path; counters count its launches only
     log("sizes cut: taxi 100M rows of the reference's 1.1B and TPC-H "
         "lineitem SF10 (60M rows) of its SF100, for host-side data "
-        "generation time and host RAM")
+        "generation time and host RAM; phase 9 streams lineitem at SF100 "
+        "(600M rows), uncut")
     hist.reset_launches()
     taxi_phase(hdk_tpu_torch, hdk, taxi, card, hist)
     del taxi
@@ -1486,6 +1735,19 @@ def main() -> None:
     log(f"window path: kernel launches {window_launches}")
     check("jax" not in sys.modules, "jax was imported")
 
+    # phase 9: executor controls in a session of their own, launches
+    # counted apart; the streamed TPC-H Q1 must launch K1, K3 and K4
+    device_cache_manager().set_budget(0)
+    torch.cuda.empty_cache()
+    hist.reset_launches()
+    controls_phase(hdk_tpu_torch, card, hist)
+    controls_launches = hist.launches()
+    for name in STREAM_KERNELS:
+        check(controls_launches[name] > 0,
+              f"kernel {name} never launched on the controls path")
+    log(f"controls path: kernel launches {controls_launches}")
+    check("jax" not in sys.modules, "jax was imported")
+
     kernels = []
     for name, rec in report.items():
         # the headline case: taxi Q4's segment count, the kernel's widest
@@ -1505,6 +1767,7 @@ def main() -> None:
             "sort_route_largest_E": recorder.max_e[name],
             "join_path_launches": join_launches[name],
             "window_path_launches": window_launches[name],
+            "controls_path_launches": controls_launches[name],
             "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it

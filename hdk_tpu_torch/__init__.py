@@ -19,9 +19,14 @@ nothing of hdk_tpu is imported.
     res = ht.agg("a", "sum(b)").run()
     res.to_numpy()
 
-Routes not ported yet (fragment-streamed aggregation, EXPLAIN,
-multi-device sessions, UDFs) raise ``NotImplementedError`` naming their
-ROADMAP item.
+A scan whose used columns exceed the scan budget streams through an
+aggregate chunk by chunk, and a chain's Filters skip the fragments their
+stats rule out.  ``hdk.explain(q)`` (or ``EXPLAIN SELECT ...``) gives
+the plan text; ``hdk.explain(q, analyze=True)`` runs the query and adds
+each step's time and rows.
+
+Routes not ported yet (multi-device sessions, UDFs) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -284,12 +289,64 @@ class HDK:
 
     # -- SQL ----------------------------------------------------------------
     def sql(self, query: str, **options) -> "QueryResult":
-        """Execute a SQL query through the port's parser and binder."""
+        """Execute a SQL query through the port's parser and binder.
+        ``EXPLAIN SELECT ...`` returns the plan text."""
         from .sql.binder import Binder
 
+        stripped = query.lstrip()
+        if stripped[:8].lower() == "explain ":
+            options = dict(options, just_explain=True)
+            query = stripped[8:]
         return self._run(Binder(self).bind(query), **options)
 
     # -- execution ----------------------------------------------------------
+    def explain(self, node_or_sql, analyze: bool = False) -> str:
+        """The plan text, one node a line, root first.  ``analyze=True``
+        runs the query with every step ending in a device synchronize and
+        adds each step's [ms, rows] to its line; a Project or Filter that
+        ran inside a step shows that step's time and its own live rows.
+        Trailer lines give the NDV sample's host time and the step builds
+        of the run."""
+        from .exec.explain import explain_dag
+        from .exec.optimizer import optimize_dag
+
+        if isinstance(node_or_sql, str):
+            from .sql.binder import Binder
+
+            node = Binder(self).bind(node_or_sql)
+        elif isinstance(node_or_sql, QueryNode):
+            node = node_or_sql.node
+        else:
+            node = node_or_sql
+        dag = optimize_dag(_ir_node.QueryDag(node), self._config)
+        if not analyze:
+            return explain_dag(dag.root)
+        ex = self._executor
+        ex._analyze = True
+        ex._step_times = {}
+        ex._fused_times = {}
+        samp0 = ex._ndv_sample_seconds
+        builds0 = ex.code_cache.misses
+        try:
+            ex.execute(dag)
+        finally:
+            ex._analyze = False
+        notes = {nid: f"{ms:.1f} ms, {rows} rows"
+                 for nid, (ms, rows) in ex._step_times.items()}
+        for nid, (step, ms, rows) in ex._fused_times.items():
+            notes.setdefault(nid, f"in the {step} step: {ms:.1f} ms, "
+                                  f"{rows} rows")
+        out = explain_dag(dag.root, notes)
+        samp = ex._ndv_sample_seconds - samp0
+        if samp > 0:
+            out += (f"\n-- sampling estimators (NDV): "
+                    f"{samp * 1000:.1f} ms of host readback\n")
+        # a step build is one step closure made (the JAX package's jit
+        # builds): what a cold run pays on the host
+        out += (f"\n-- step builds this run: "
+                f"{ex.code_cache.misses - builds0}\n")
+        return out
+
     def _run(self, node, **options) -> QueryResult:
         """Execute with per-query options (the JAX package's option set;
         device_type and the like are accepted and ignored)."""
@@ -302,10 +359,12 @@ class HDK:
         unknown = set(options) - known
         if unknown:
             raise TypeError(f"unknown query options: {sorted(unknown)}")
-        if options.get("just_explain"):
-            raise NotImplementedError(
-                "EXPLAIN is not ported yet (ROADMAP A5)")
         dag = optimize_dag(_ir_node.QueryDag(node), self._config)
+        if options.get("just_explain"):
+            from .exec.explain import explain_dag
+
+            return explain_dag(dag.root)  # type: ignore[return-value]
+        dag, plan_fb = self._choose_plan_variant(node, dag)
         wd = self._config.exec.watchdog
         saved = (wd.enable, wd.time_limit_ms)
         if "enable_watchdog" in options:
@@ -314,10 +373,51 @@ class HDK:
             wd.time_limit_ms = int(options["watchdog_time_limit_ms"])
             wd.enable = True
         try:
-            table = self._executor.execute(dag)
+            if plan_fb is not None:  # the timed run of a plan variant
+                import time as _time
+
+                sig, variant = plan_fb
+                t0 = _time.perf_counter()
+                table = self._executor.execute(dag)
+                self._executor._force_table(table)
+                self._executor._plan_feedback.record(
+                    sig, variant, _time.perf_counter() - t0)
+            else:
+                table = self._executor.execute(dag)
         finally:
             wd.enable, wd.time_limit_ms = saved
         return QueryResult(self, table)
+
+    def _choose_plan_variant(self, node, rewritten):
+        """The eager-aggregation A/B: when the rewrite changed the plan,
+        the first runs of the plan shape run each variant once cold and
+        once timed, then the session keeps the faster (a rewrite that
+        measures slower turns itself off).  Returns (dag, None), or (dag,
+        (signature, variant)) when this run is the timed one."""
+        ecfg = self._config.exec
+        if (not ecfg.enable_eager_aggregation
+                or not ecfg.enable_route_feedback):
+            return rewritten, None
+        order = rewritten.topo_order()
+        if not (any(isinstance(n, _ir_node.Aggregate) for n in order)
+                and any(isinstance(n, _ir_node.Join) for n in order)):
+            return rewritten, None
+        import copy
+
+        from .exec import optimizer as _opt
+        from .exec.explain import explain_dag
+
+        cfg_off = copy.deepcopy(self._config)
+        cfg_off.exec.enable_eager_aggregation = False
+        alt = _opt.optimize_dag(_ir_node.QueryDag(node), cfg_off)
+        alt_txt = explain_dag(alt.root)
+        if explain_dag(rewritten.root) == alt_txt:
+            return rewritten, None  # the rewrite did not fire
+        sig = "eagerplan|" + alt_txt
+        variant, mode = self._executor._plan_feedback.choose(
+            sig, ["rewrite", "original"])
+        chosen = rewritten if variant == "rewrite" else alt
+        return chosen, ((sig, variant) if mode == "timed" else None)
 
 
 _global: Optional[HDK] = None

@@ -8,10 +8,23 @@ ranges, else from a device min/max probe of the keys; without one, the
 sort route, whose group buffer has a cap from ``default_max_groups``, the
 key-range product and a sampled NDV estimate (Chao84).  A sort-route
 group count above the cap widens the buffer and runs again, unless
-``exec.allow_retry`` is off."""
+``exec.allow_retry`` is off.  Between 512 and 4096 dense entries over at
+least 2^16 rows either route can win: the first runs of a plan time both
+(``feedback.py``), later runs take the faster.
+
+Fragment-streamed aggregation: a scalar aggregate, or a GROUP BY whose
+dense layout comes from fragment stats, over a scan whose used columns
+exceed the scan budget (``exec.scan_stream_bytes``, else half the device
+cache budget), or run under a watchdog time limit, reads the scan chunk
+by chunk (runs of whole fragments), each chunk copied to the device
+outside the device cache.  Each chunk's partial slots come from the same
+histograms as the whole-column route (K1, K3, K4 on the card) and merge
+by sum, min or max; the watchdog's deadline is checked between chunks,
+after a synchronize."""
 
 from __future__ import annotations
 
+import time as _time
 import weakref
 from typing import List, Optional
 
@@ -24,7 +37,9 @@ from . import groupby as gb
 from . import ranges as rng
 from . import sort as srt
 from .codecache import chain_key
-from .common import ExecTable, _broadcast, _schema_sig
+from .common import ExecTable, _PrunedScanColumns, _broadcast, _schema_sig
+from .explain import _node_line
+from .feedback import synchronize, timed_sync
 from .masked import MaskedCol, combine_masks, torch_dtype
 from .scalar import ExecError
 
@@ -35,13 +50,27 @@ _IDENTITY_KINDS = frozenset({
     ir.AggKind.MAX, ir.AggKind.SINGLE_VALUE, ir.AggKind.SAMPLE,
 })
 
-# aggregate kinds the JAX package merges chunk by chunk when it streams a
-# scan through the device (fragment-streamed aggregation)
-_STREAMED_KINDS = frozenset({
-    ir.AggKind.COUNT, ir.AggKind.SUM, ir.AggKind.AVG, ir.AggKind.STDDEV_SAMP,
-    ir.AggKind.VAR_SAMP, ir.AggKind.MIN, ir.AggKind.MAX, ir.AggKind.SAMPLE,
-    ir.AggKind.SINGLE_VALUE, ir.AggKind.APPROX_COUNT_DISTINCT,
-})
+# how each slot of a mergeable aggregate merges across fragment-stream
+# chunks (hdk_tpu/parallel/dist_groupby.py's _COMBINE, the entries the
+# stream takes); an empty group's MIN/MAX slot holds the identity
+_COMBINE = {
+    ir.AggKind.COUNT: ("sum",),
+    ir.AggKind.SUM: ("sum", "sum"),
+    ir.AggKind.AVG: ("sum", "sum"),
+    ir.AggKind.STDDEV_SAMP: ("sum", "sum", "sum"),
+    ir.AggKind.VAR_SAMP: ("sum", "sum", "sum"),
+    ir.AggKind.MIN: ("min", "sum"),
+    ir.AggKind.MAX: ("max", "sum"),
+    ir.AggKind.SAMPLE: ("min", "sum"),
+    ir.AggKind.SINGLE_VALUE: ("min", "sum"),
+    ir.AggKind.APPROX_COUNT_DISTINCT: ("max",),
+}
+_MERGE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+# dense entry counts where both group-by routes are timed (the JAX
+# package's gate: above 512 entries, up to its one-hot segment limit)
+_TUNE_ENTRIES = (512, 4096)
+_TUNE_MIN_ROWS = 1 << 16
 
 
 def _perfect_key_type(typ: t.Type) -> bool:
@@ -61,8 +90,12 @@ class AggExecMixin:
         out = self._agg_identity_table(node, source, chain, src_node)
         if out is not None:
             return out
+        stream = self._grouped_stream_plan(node, source, chain, src_node)
+        if stream is not None:
+            return self._exec_aggregate_fragmented(node, source, chain,
+                                                   src_node, *stream)
         cols, exists, n, nbuf = self._group(node, source, chain, src_node,
-                                            need_count=True)
+                                            need_count=True, tune=True)
         # group-by output keys are distinct by construction: a downstream
         # GROUP BY covering them is an identity pass
         uniq = (frozenset(range(len(node.keys))),)
@@ -75,19 +108,27 @@ class AggExecMixin:
                          unique_sets=uniq)
 
     def _group(self, node: nd.Aggregate, source: ExecTable, chain, src_node,
-               need_count: bool):
+               need_count: bool, tune: bool = False):
         """Group the source on the dense or the sort route: (columns,
         exists, n, entries of the buffer).  On the sort route a group count
         above the buffer cap widens the buffer and groups again.  ``n`` is
         the group count read on the host (a sync): None on the dense route,
         and on the sort route unless ``need_count`` or the buffer can
         overflow (it cannot when it covers every row or the whole
-        key-range product)."""
+        key-range product).  ``tune``: a dense layout in the tuning window
+        takes the route that measured faster (``_tune_route``)."""
         used = self._agg_used(node, chain, src_node)
         layout, key_ranges = self._layout_and_ranges(node, source, chain,
-                                                     src_node, used)
+                                                     src_node)
         cap, prod = self._sort_cap(node, source, chain, src_node, layout,
                                    key_ranges)
+        tune_sig = None
+        if tune and layout is not None:
+            tune_sig, route = self._tune_route(node, source, chain, used,
+                                               layout)
+            if route == "sort":
+                cap = min(source.nrows, layout.entry_count)
+                layout = None
         can_overflow = (cap < source.nrows and (prod is None or prod > cap))
         read = layout is None and (need_count or can_overflow)
         args = ([source.columns[i] for i in used], source.row_mask)
@@ -96,7 +137,13 @@ class AggExecMixin:
             self._groupby_attempts += 1
             fn = self._group_step(node, source, chain, src_node, used,
                                   layout, key_ranges, cap)
-            key_cols, agg_cols, exists, n_groups = fn(*args)
+            if tune_sig is not None:  # explore: time this route warm
+                (key_cols, agg_cols, exists, n_groups), secs = timed_sync(
+                    fn, *args, device=self.device)
+                self._feedback.record(tune_sig, route, secs)
+                tune_sig = None
+            else:
+                key_cols, agg_cols, exists, n_groups = fn(*args)
             n = int(n_groups) if read else None  # host sync: group count
             if n is None or n <= cap:
                 break
@@ -106,6 +153,23 @@ class AggExecMixin:
             return cols, exists, None, layout.entry_count
         self._groupby_cap = cap
         return cols, exists, n, cap
+
+    def _tune_route(self, node: nd.Aggregate, source: ExecTable, chain,
+                    used, layout):
+        """(signature to record the time under, or None; route) of a
+        GROUP BY with a dense layout: inside the tuning window the first
+        runs of a plan explore "perfect", then "sort", each timed;
+        later runs take the faster."""
+        if (not self._feedback.enabled
+                or not _TUNE_ENTRIES[0] < layout.entry_count
+                <= _TUNE_ENTRIES[1]
+                or source.nrows < _TUNE_MIN_ROWS):
+            return None, "perfect"
+        sig = chain_key(_schema_sig(source), chain, node,
+                        self._dict_generation_sig(chain, node)
+                        + f"tunegrp/u{used}/n{source.nrows}")
+        route, measure = self._feedback.choose(sig, ["perfect", "sort"])
+        return (sig if measure else None), route
 
     def _widen(self, n: int, cap: int, nrows: int) -> int:
         """The cap of the next attempt after ``n`` groups overflowed
@@ -159,9 +223,15 @@ class AggExecMixin:
         if ident is not None:
             # the Sort runs over the (masked) identity table
             results[node.id] = ident
+            if self._analyze:
+                self._fused_rows[_node_line(node)] = ident.live_count()
             return self._exec_sort(sort_node, results)
+        if self._grouped_stream_plan(node, source, chain, src_node):
+            return None  # the aggregate streams, then the Sort runs
         cols, exists, _n, nbuf = self._group(node, source, chain, src_node,
                                              need_count=False)
+        if self._analyze:  # EXPLAIN ANALYZE: the aggregate's groups
+            self._fused_rows[_node_line(node)] = exists.sum()
         out_types = list(node.output_types)
         sf = sort_node.sort_fields
         limit, offset = sort_node.limit, sort_node.offset
@@ -230,7 +300,11 @@ class AggExecMixin:
     def _agg_nogroup(self, node: nd.Aggregate, source: ExecTable,
                      chain, src_node) -> ExecTable:
         used = self._agg_used(node, chain, src_node)
-        self._refuse_fragment_stream(node, source, chain, src_node, used)
+        plan = self._fragment_stream_plan(node, source, chain, src_node,
+                                          used)
+        if plan is not None:
+            return self._exec_aggregate_fragmented(
+                node, source, chain, src_node, used, None, plan)
         key = chain_key(_schema_sig(source), chain, node,
                         self._dict_generation_sig(chain, node)
                         + f"nogroup/u{used}/n{source.nrows}")
@@ -255,6 +329,166 @@ class AggExecMixin:
         fn = self.code_cache.get_or_build(key, build)
         cols = fn([source.columns[i] for i in used], source.row_mask)
         return ExecTable(list(node.fields), list(node.output_types), cols, 1)
+
+    # -- fragment-streamed aggregation --------------------------------------
+    def _grouped_stream_plan(self, node: nd.Aggregate, source: ExecTable,
+                             chain, src_node):
+        """(used, layout, plan) when a GROUP BY streams: its dense layout
+        comes from fragment stats (a device probe of the keys would move
+        the whole columns) and ``_fragment_stream_plan`` takes the scan;
+        else None."""
+        if not isinstance(src_node, nd.Scan):
+            return None
+        ranges = self._static_ranges(node)
+        if ranges is None:
+            return None
+        layout = gb.choose_perfect_layout([k.type for k in node.keys],
+                                          ranges, self._layout_limit)
+        if layout is None:
+            return None
+        used = self._agg_used(node, chain, src_node)
+        plan = self._fragment_stream_plan(node, source, chain, src_node,
+                                          used)
+        return None if plan is None else (used, layout, plan)
+
+    def _fragment_stream_plan(self, node: nd.Aggregate, source: ExecTable,
+                              chain, src_node, used):
+        """(table, chunks) when the aggregate streams over its scan: chunks
+        are runs of whole fragments, each up to the budget's rows (one
+        fragment each under a watchdog time limit), the last one maybe
+        shorter; None when the whole columns go to the device."""
+        if (source.row_mask is not None
+                or isinstance(source.columns, _PrunedScanColumns)
+                or not isinstance(src_node, nd.Scan)):
+            return None
+        if not all(a.kind in _COMBINE and not a.distinct
+                   for a in node.aggs):
+            return None
+        # a window function sees all rows: per chunk it would restart
+        from .optimizer import _contains_window
+
+        exprs = list(node.keys) + [a.operand for a in node.aggs
+                                   if a.operand is not None]
+        for n_ in chain:
+            exprs += (n_.exprs if isinstance(n_, nd.Project)
+                      else [n_.condition])
+        if any(_contains_window(e) for e in exprs):
+            return None
+        table = src_node.table
+        frags = table.fragments
+        if len(frags) < 2 or table.nrows == 0:
+            return None
+        bpr = 0  # bytes a row over the used columns
+        for i in used:
+            col = table.column(source.fields[i])
+            bpr += col.data.dtype.itemsize + (col.validity is not None)
+        budget = (self.config.exec.scan_stream_bytes
+                  or self.config.storage.device_cache_budget_bytes // 2)
+        wd = self.config.exec.watchdog
+        timed = bool(wd.enable and wd.time_limit_ms)
+        if bpr * table.nrows <= budget and not timed:
+            return None
+        target = max(1, budget // max(bpr, 1))
+        if timed:
+            target = min(target, self.config.storage.fragment_size)
+        chunks = []
+        start, rows = None, 0
+        for r0, r1 in frags:
+            if start is None:
+                start, rows = r0, r1 - r0
+            elif rows + (r1 - r0) > target:
+                chunks.append((start, r0))
+                start, rows = r0, r1 - r0
+            else:
+                rows += r1 - r0
+        chunks.append((start, frags[-1][1]))
+        return (table, chunks) if len(chunks) >= 2 else None
+
+    def _exec_aggregate_fragmented(self, node: nd.Aggregate,
+                                   source: ExecTable, chain, src_node,
+                                   used, layout, plan) -> ExecTable:
+        """Aggregate over the scan chunk by chunk: each chunk's columns
+        are copied to the device (not into the device cache), run
+        through the chain, and reduced to partial slots over the dense
+        layout (or one group), which merge into the running slots."""
+        table, chunks = plan
+        self._frag_stream_chunks = len(chunks)
+        n = layout.entry_count if layout is not None else 1
+        size = len(source.fields)
+        key = chain_key(_schema_sig(source), chain, node,
+                        self._dict_generation_sig(chain, node)
+                        + f"fragstream/{n}/u{used}"
+                        + (f"/l{layout.mins}{layout.sizes}" if layout
+                           else ""))
+
+        def build():
+            def fn(sub_cols, rows):
+                resolve, rm = self._terminal_env(src_node, sub_cols, used,
+                                                 size, chain, None, rows)
+                specs = self._build_specs(node, resolve, rows)
+                if layout is not None:
+                    keys = [_broadcast(self.scalar.evaluate(k, resolve),
+                                       rows) for k in node.keys]
+                    gid, _ = gb.perfect_gid(keys, layout, rm)
+                elif rm is None:
+                    gid = torch.zeros((rows,), dtype=torch.int32,
+                                      device=self.device)
+                else:
+                    gid = torch.where(rm, 0, 1).to(torch.int32)
+                return gb.reduce_slots(specs, gid, n)
+
+            return fn
+
+        fn = self.code_cache.get_or_build(key, build)
+        acc = counts = None
+        fused_rows = {}
+        for r0, r1 in chunks:
+            sub_cols = [self._chunk_column(table.column(source.fields[i]),
+                                           r0, r1) for i in used]
+            parts, cnt = fn(sub_cols, r1 - r0)
+            slots = [r.slots for r in parts]
+            if acc is None:
+                acc, counts = slots, cnt
+            else:
+                acc = [[_MERGE[rule](a, b) for rule, a, b
+                        in zip(_COMBINE[agg.kind], acc_s, new_s)]
+                       for agg, acc_s, new_s in zip(node.aggs, acc, slots)]
+                counts = counts + cnt
+            for line, rows in self._fused_rows.items():  # EXPLAIN ANALYZE
+                fused_rows[line] = fused_rows.get(line, 0) + rows
+            del sub_cols, parts  # before the next chunk's copies
+            self._check_watchdog_budget()
+        self._fused_rows.update(fused_rows)
+        agg_cols = [gb.AggResult(list(slots)).finalize(
+            gb.AggSpec(a.kind, None, a.type, a.distinct, a.arg1,
+                       a.interpolation))
+            for a, slots in zip(node.aggs, acc)]
+        if layout is None:
+            return ExecTable(list(node.fields), list(node.output_types),
+                             agg_cols, 1)
+        key_cols = gb.perfect_key_columns_from_types(
+            [k.type for k in node.keys], layout, self.device)
+        return ExecTable(list(node.fields), list(node.output_types),
+                         key_cols + agg_cols, n, counts > 0,
+                         unique_sets=(frozenset(range(len(node.keys))),))
+
+    def _chunk_column(self, col, r0: int, r1: int) -> MaskedCol:
+        """Rows [r0, r1) of a table column, copied to the device."""
+        from ..storage.table import to_device
+
+        return MaskedCol(to_device(col.data[r0:r1], self.device),
+                         None if col.validity is None
+                         else to_device(col.validity[r0:r1], self.device))
+
+    def _check_watchdog_budget(self) -> None:
+        """The watchdog's deadline, checked between stream chunks after a
+        synchronize, so it measures the device's progress and not the
+        host's queueing."""
+        if self._deadline is None:
+            return
+        synchronize(self.device)
+        if _time.monotonic() > self._deadline:
+            raise ExecError("watchdog: query time budget exceeded")
 
     # ------------------------------------------------------------------
     def _agg_used(self, node: nd.Aggregate, chain, src_node) -> List[int]:
@@ -292,48 +526,27 @@ class AggExecMixin:
                 td_budget=g.tdigest_centroid_budget))
         return specs
 
-    def _refuse_fragment_stream(self, node, source, chain, src_node,
-                                used) -> None:
-        """The JAX package streams a scan fragment by fragment through a
-        dense or scalar aggregate of mergeable kinds when its used columns
-        exceed the scan budget, or when a watchdog time limit is set; that
-        route is not ported."""
-        if not isinstance(src_node, nd.Scan) or source.row_mask is not None:
-            return
-        if not all(a.kind in _STREAMED_KINDS and not a.distinct
-                   for a in node.aggs):
-            return
-        table = src_node.table
-        if len(table.fragments) < 2 or table.nrows == 0:
-            return
-        bpr = sum(table.column(source.fields[i]).data.dtype.itemsize
-                  + (table.column(source.fields[i]).validity is not None)
-                  for i in used)
-        budget = (self.config.exec.scan_stream_bytes
-                  or self.config.storage.device_cache_budget_bytes // 2)
-        wd = self.config.exec.watchdog
-        if bpr * table.nrows > budget or (wd.enable and wd.time_limit_ms):
-            raise NotImplementedError(
-                "fragment-streamed aggregation (scan over the device budget "
-                "or a watchdog time limit) is not ported yet (ROADMAP A4)")
-
     # -- layout, key ranges and the group cap ------------------------------
+    def _static_ranges(self, node: nd.Aggregate):
+        """The keys' ranges from fragment stats, or None when a key is no
+        perfect-hash type or has no static range."""
+        if not all(_perfect_key_type(k.type) for k in node.keys):
+            return None
+        ranges = [rng.infer_range(k) for k in node.keys]
+        return ranges if all(r is not None for r in ranges) else None
+
     def _layout_and_ranges(self, node: nd.Aggregate, source: ExecTable,
-                           chain, src_node, used):
+                           chain, src_node):
         """(dense layout or None, key ranges or None).  Static ranges come
         back even when the layout is refused for its size, so the sort
         route can pack the keys; keys that stats cannot bound are probed
-        on the device.  A static layout over a scan the JAX package would
-        stream is refused (``_refuse_fragment_stream``)."""
+        on the device."""
         if not all(_perfect_key_type(k.type) for k in node.keys):
             return None, None
-        ranges = [rng.infer_range(k) for k in node.keys]
-        if all(r is not None for r in ranges):
+        ranges = self._static_ranges(node)
+        if ranges is not None:
             layout = gb.choose_perfect_layout([k.type for k in node.keys],
                                               ranges, self._layout_limit)
-            if layout is not None:
-                self._refuse_fragment_stream(node, source, chain, src_node,
-                                             used)
             if all(lo is not None and hi is not None
                    for lo, hi, _ in ranges):
                 return layout, tuple((int(lo), int(hi), bool(nul))
@@ -446,6 +659,13 @@ class AggExecMixin:
                         + f"ndvsample/u{used}/s{s}/st{stride}/n{nrows}")
 
         def estimate():
+            t0 = _time.perf_counter()
+            try:
+                return sample()
+            finally:
+                self._ndv_sample_seconds += _time.perf_counter() - t0
+
+        def sample():
             samp = [MaskedCol(c.data[::stride][:s],
                               c.mask[::stride][:s] if c.mask is not None
                               else None)

@@ -1,8 +1,9 @@
 """Executor data structures and small helpers (counterpart of
-hdk_tpu/exec/common.py: ExecTable, the lazy scan and join-output columns,
-the identity- and plan-keyed caches of join build tables, consumer
-analysis, broadcasting, the schema signature of compiled-step keys and
-the rebinding of a join's residual onto its output)."""
+hdk_tpu/exec/common.py: ExecTable, the lazy scan, pruned scan and
+join-output columns, the identity- and plan-keyed caches of join build
+tables, consumer analysis, broadcasting, the schema signature of
+compiled-step keys and the rebinding of a join's residual onto its
+output)."""
 
 from __future__ import annotations
 
@@ -94,6 +95,39 @@ class _LazyScanColumns(list):
         if got is None and isinstance(i, int):
             data, mask = self._table.column(self._fields[i]).device_arrays(
                 self._device)
+            got = MaskedCol(data, mask)
+            self[i] = got
+        return got
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+class _PrunedScanColumns(list):
+    """Scan columns restricted to the fragments that survive fragment
+    skipping, moved to the device on first access
+    (``Column.device_rows``: sliced on the device when the whole column
+    is there, else only the survivors copied from the host).  The rows
+    are the survivors' and nothing else: no padding."""
+
+    def __init__(self, table, fields, ranges, device: torch.device):
+        super().__init__([None] * len(fields))
+        self._table = table
+        self._fields = fields
+        merged: List[list] = []
+        for s, e in ranges:  # adjacent fragments make one range
+            if merged and merged[-1][1] == s:
+                merged[-1][1] = e
+            else:
+                merged.append([s, e])
+        self._ranges = tuple((s, e) for s, e in merged)
+        self._device = device
+
+    def __getitem__(self, i):
+        got = super().__getitem__(i)
+        if got is None and isinstance(i, int):
+            data, mask = self._table.column(self._fields[i]).device_rows(
+                self._device, self._ranges)
             got = MaskedCol(data, mask)
             self[i] = got
         return got

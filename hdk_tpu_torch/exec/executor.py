@@ -16,6 +16,14 @@ no ``jit`` to wrap.  Joins run in ``join_exec.py``, window functions in
 Array columns are 2-D (rows x width) with a same-shaped element mask;
 they ride sorts, joins and unions as rows of their tensors, and UNNEST
 turns them into rows x width element rows, the absent ones dead.
+
+Controls around a step, as in the JAX package: fragment skipping (a
+chain's Filters bound scan columns whose fragment stats exclude
+fragments; only the survivors reach the device), fragment-streamed
+aggregation (``agg_exec.py``), the watchdog's row budget and deadline,
+measured route feedback (``feedback.py``) and EXPLAIN ANALYZE
+(``_analyze``: every step ends in a device synchronize and records its
+time and rows in ``_step_times``).
 """
 
 from __future__ import annotations
@@ -35,8 +43,11 @@ from . import sort as srt
 from .agg_exec import AggExecMixin, _window
 from .codecache import CodeCache, chain_key
 from .common import (ExecTable, _CHAIN_NODES, _IdentityKeyedCache,
-                     _LazyScanColumns, _PlanArtifactCache, _broadcast,
+                     _LazyScanColumns, _LazyThunkColumns,
+                     _PlanArtifactCache, _PrunedScanColumns, _broadcast,
                      _consumer_kinds, _schema_sig)
+from .explain import _node_line
+from .feedback import PlanChoiceFeedback, RouteFeedback, synchronize
 from .join_exec import JoinExecMixin
 from .masked import MaskedCol, from_numpy, torch_dtype
 from .scalar import ExecError, ScalarCompiler
@@ -76,6 +87,25 @@ class Executor(AggExecMixin, JoinExecMixin):
         # per query: each node's consumer kinds and direct consumers
         self._consumers: Optional[Dict[int, List[str]]] = None
         self._direct_consumers: Optional[Dict[int, list]] = None
+        # EXPLAIN ANALYZE: force and time every step; a step's (ms, rows)
+        # by node id, and each node that ran inside a step (its step's
+        # kind, ms, live rows) by node id; during a step, the live rows
+        # of those nodes by plan line
+        self._analyze = False
+        self._step_times: Dict[int, Tuple[float, int]] = {}
+        self._fused_rows: Dict[str, object] = {}
+        self._fused_times: Dict[int, Tuple[str, float, int]] = {}
+        # host seconds spent in sampling estimators (the NDV sample)
+        self._ndv_sample_seconds = 0.0
+        # measured route tuning and the plan-variant A/B (feedback.py)
+        self._feedback = RouteFeedback(
+            enabled=config.exec.enable_route_feedback)
+        self._plan_feedback = PlanChoiceFeedback(self._feedback)
+        # the last query's fragment skipping {selected, total} and
+        # fragment-stream chunk count (None: it did not prune / stream)
+        self._frag_prune_stats: Optional[Dict[str, int]] = None
+        self._frag_stream_chunks: Optional[int] = None
+        self._deadline: Optional[float] = None  # the watchdog's
 
     # ------------------------------------------------------------------
     def execute(self, dag: nd.QueryDag) -> ExecTable:
@@ -88,6 +118,8 @@ class Executor(AggExecMixin, JoinExecMixin):
         results: Dict[int, ExecTable] = {}
         order = dag.topo_order()
         self._consumers = _consumer_kinds(order, dag.root)
+        self._frag_prune_stats = None
+        self._frag_stream_chunks = None
         self._direct_consumers = {}
         for n_ in order:
             for pos_, i_ in enumerate(n_.inputs):
@@ -109,6 +141,7 @@ class Executor(AggExecMixin, JoinExecMixin):
         wd = self.config.exec.watchdog
         deadline = (_time.monotonic() + wd.time_limit_ms / 1e3
                     if wd.enable and wd.time_limit_ms else None)
+        self._deadline = deadline
         for node in order:
             if node.id in fused_aggs and node.id not in results:
                 continue  # runs with the consuming Sort
@@ -124,36 +157,115 @@ class Executor(AggExecMixin, JoinExecMixin):
                 if deadline is not None and _time.monotonic() > deadline:
                     raise ExecError("watchdog: query time budget exceeded")
             t0 = _time.monotonic()
+            self._fused_rows = {}
             if (isinstance(node, nd.Sort)
                     and node.inputs[0].id in fused_aggs
                     and node.inputs[0].id not in results):
                 out = self._exec_fused_agg_sort(node, node.inputs[0], results)
-                if out is None:  # empty input: run the parts
-                    results[node.inputs[0].id] = self._exec_aggregate(
-                        node.inputs[0], results)
+                if out is None:  # empty or streamed input: run the parts
+                    agg = node.inputs[0]
+                    results[agg.id] = self._exec_aggregate(agg, results)
+                    if self._analyze:
+                        self._record_step(agg, results[agg.id], t0)
+                        t0 = _time.monotonic()
                     out = self._exec_step(node, results)
             else:
                 out = self._exec_step(node, results)
             results[node.id] = out
-            _LOG.debug1("step %s#%d: %d rows, %.1f ms", type(node).__name__,
-                        node.id, out.nrows, (_time.monotonic() - t0) * 1e3)
+            if self._analyze:
+                self._record_step(node, out, t0)
+            _LOG.debug1("step %s#%d: %d rows, %.1f ms%s",
+                        type(node).__name__, node.id, out.nrows,
+                        (_time.monotonic() - t0) * 1e3,
+                        " frags={selected}/{total}".format(
+                            **self._frag_prune_stats)
+                        if self._frag_prune_stats else "")
         _LOG.info("query done: %.1f ms, %d rows",
                   (_time.monotonic() - t_query) * 1e3,
                   results[dag.root.id].nrows)
         return results[dag.root.id]
 
+    def _record_step(self, node: nd.Node, out: ExecTable,
+                     t0: float) -> None:
+        """EXPLAIN ANALYZE: force the step's output (lazy join columns,
+        queued device work), then record its time and rows, and those of
+        the Project/Filter nodes fused into it."""
+        self._force_table(out)
+        ms = (_time.monotonic() - t0) * 1e3
+        self._step_times[node.id] = (ms, out.nrows)
+        # the nodes below this step down to the steps it read; a cached
+        # step closure holds the nodes of the query that built it, so its
+        # rows are keyed by plan line, not by node
+        stack = list(node.inputs)
+        while stack:
+            n = stack.pop()
+            if n.id in self._step_times:
+                continue
+            rows = self._fused_rows.get(_node_line(n))
+            if rows is not None:
+                self._fused_times[n.id] = (type(node).__name__, ms,
+                                           int(rows))
+            stack.extend(n.inputs)
+        self._fused_rows = {}
+
+    def _force_table(self, table: ExecTable) -> None:
+        """Compute a table's lazy columns and wait for the device.  Scan
+        columns not read yet stay on the host: a scan moves no data
+        itself, its consumers copy what they read."""
+        if isinstance(table.columns, _LazyThunkColumns):
+            list(table.columns)  # computes each column
+        synchronize(self.device)
+
     # ------------------------------------------------------------------
     def _resolve_chain(self, node: nd.Node, results
                        ) -> Tuple[ExecTable, List[nd.Node], nd.Node]:
         """Walk back through Project/Filter to the materialized source.
-        Returns (source_table, chain_in_exec_order, source_node)."""
+        Returns (source_table, chain_in_exec_order, source_node); a scan
+        source is cut to the fragments the chain's Filters can match."""
         chain: List[nd.Node] = []
         cur = node
         while isinstance(cur, _CHAIN_NODES) and cur.id not in results:
             chain.append(cur)
             cur = cur.inputs[0]
         chain.reverse()
-        return self._source_table(cur, results), chain, cur
+        source = self._source_table(cur, results)
+        pruned = self._maybe_prune_scan(cur, chain, results)
+        return (pruned if pruned is not None else source), chain, cur
+
+    def _maybe_prune_scan(self, src_node: nd.Node, chain: List[nd.Node],
+                          results) -> Optional[ExecTable]:
+        """Fragment skipping: when the chain's Filters bound scan columns
+        whose fragment min/max stats exclude fragments, the source is the
+        surviving fragments' rows.  None when no pruning applies."""
+        from . import prune
+
+        if (not self.config.exec.enable_fragment_skipping
+                or not isinstance(src_node, nd.Scan)):
+            return None
+        got = results.get(src_node.id)
+        if got is not None and not isinstance(got.columns, _LazyScanColumns):
+            return None
+        table = src_node.table
+        if table.nrows == 0 or len(table.fragments) < 2:
+            return None
+        if not any(isinstance(n, nd.Filter) for n in chain):
+            return None
+        bounds = prune.column_bounds(chain, src_node)
+        if not bounds:
+            return None
+        sel = prune.select_fragments(table, list(src_node.fields), bounds)
+        if sel is None or len(sel) == len(table.fragments):
+            return None
+        self._frag_prune_stats = {"selected": len(sel),
+                                  "total": len(table.fragments)}
+        fields = list(src_node.fields)
+        types = list(src_node.output_types)
+        nsel = sum(e - s for s, e in sel)
+        if nsel == 0:
+            return ExecTable.empty(fields, types, self.device)
+        return ExecTable(fields, types,
+                         _PrunedScanColumns(table, fields, sel, self.device),
+                         nsel)
 
     def _source_table(self, node: nd.Node, results) -> ExecTable:
         got = results.get(node.id)
@@ -255,6 +367,9 @@ class Executor(AggExecMixin, JoinExecMixin):
                 m = m.expand(nrows)
                 row_mask = m if row_mask is None else (row_mask & m)
                 env[n.id] = env[n.inputs[0].id]
+            if self._analyze:  # the node's live rows (the last run wins)
+                self._fused_rows[_node_line(n)] = (
+                    nrows if row_mask is None else row_mask.sum())
         return env, (chain[-1] if chain else source_node), row_mask
 
     # ------------------------------------------------------------------

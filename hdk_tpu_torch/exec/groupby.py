@@ -477,8 +477,18 @@ def groupby_perfect(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
 def _reduce_specs(specs: Sequence[AggSpec], gid: torch.Tensor, n: int
                   ) -> Tuple[List[MaskedCol], torch.Tensor]:
     """(finalized aggregate columns, exists) over rows with dense group
-    ids in [0, n); rows with gid n drop out.  One seg_sums call takes
-    exists and every sum-shaped slot."""
+    ids in [0, n); rows with gid n drop out."""
+    results, counts = reduce_slots(specs, gid, n)
+    return ([r.finalize(s) for r, s in zip(results, specs)], counts > 0)
+
+
+def reduce_slots(specs: Sequence[AggSpec], gid: torch.Tensor, n: int
+                 ) -> Tuple[List[AggResult], torch.Tensor]:
+    """(each aggregate's raw slots, rows a group) over rows with dense
+    group ids in [0, n); rows with gid n drop out.  One seg_sums call
+    takes the row counts and every sum-shaped slot.  A group without
+    non-NULL values holds the identity in its MIN/MAX slot, so partial
+    slots of disjoint rows merge by sum, min and max."""
     ones = torch.ones(gid.shape, dtype=torch.bool, device=gid.device)
     batch_cols: List[torch.Tensor] = [ones]
     plans = []
@@ -492,15 +502,14 @@ def _reduce_specs(specs: Sequence[AggSpec], gid: torch.Tensor, n: int
         else:
             plans.append(None)
     sums = _seg_sum_many(batch_cols, gid, n + 1, ones_obj=ones)
-    agg_cols = []
+    results = []
     for spec, plan in zip(specs, plans):
         if plan is None:
-            res = _agg_slots(spec, gid, n)
+            results.append(_agg_slots(spec, gid, n))
         else:
             idxs, resolve = plan
-            res = resolve([sums[i][:n] for i in idxs])
-        agg_cols.append(res.finalize(spec))
-    return agg_cols, sums[0][:n] > 0
+            results.append(resolve([sums[i][:n] for i in idxs]))
+    return results, sums[0][:n]
 
 
 def _perfect_key_columns(keys: Sequence[MaskedCol],
@@ -521,6 +530,30 @@ def _perfect_key_columns(keys: Sequence[MaskedCol],
         key_cols.append(MaskedCol(
             data, idx != (size - 1) if key.mask is not None else None))
     return key_cols
+
+
+def perfect_key_columns_from_types(key_types: Sequence[t.Type],
+                                   layout: PerfectHashLayout,
+                                   device: torch.device) -> List[MaskedCol]:
+    """Key values of the dense entries from the layout and the key types
+    alone (the fragment stream merges partial slots and never holds the
+    whole key columns); a nullable key's last slot is its NULL."""
+    n = layout.entry_count
+    entry = torch.arange(n, dtype=torch.int64, device=device)
+    strides = []
+    acc = 1
+    for size in reversed(layout.sizes):
+        strides.append(acc)
+        acc *= size
+    strides.reverse()
+    out: List[MaskedCol] = []
+    for typ, mn, size, st in zip(key_types, layout.mins, layout.sizes,
+                                 strides):
+        idx = torch.div(entry, st, rounding_mode="floor") % size
+        data = (idx + mn).to(torch_dtype(typ.physical_dtype()))
+        out.append(MaskedCol(data, idx != (size - 1) if typ.nullable
+                             else None))
+    return out
 
 
 def try_pack_keys(keys: Sequence[MaskedCol],

@@ -7,11 +7,10 @@ Reference semantics matched (not copied): Execute.h:540
 against the filter's implied value range; disjoint fragments never
 transfer or execute.
 
-TPU-native shape handling: surviving fragments host-gather into ONE
-padded device buffer (padding rows masked dead via ``row_mask``), with
-the pad bucketed (next power-of-two, 1/8 steps) so repeated selections
-of similar size share compiled XLA programs — static shapes, no
-per-selection recompiles.
+The executor (``Executor._maybe_prune_scan``) takes the surviving
+fragments' rows as they are: the JAX package pads them to a bucketed
+size so similar selections share a compiled XLA program, which eager
+torch steps do not need.
 """
 
 from __future__ import annotations
@@ -289,14 +288,3 @@ def select_fragments(table, fields: Sequence[str],
         if keep:
             selected.append(frag)
     return selected if usable else None
-
-
-def pad_bucket(n: int) -> int:
-    """Round up to a 1/8-step of the floor power of two (<=12.5%
-    padding, few distinct shapes -> compiled programs shared across
-    different fragment selections of similar size)."""
-    if n <= 64:
-        return 64
-    p = 1 << (n.bit_length() - 1)  # pow2 <= n
-    step = p // 8
-    return ((n + step - 1) // step) * step

@@ -18,6 +18,8 @@ explicitly, as JAX promotes strongly typed arrays.
 
 from __future__ import annotations
 
+import calendar
+import datetime as _dt
 import functools
 import re
 from typing import Callable, Dict, Optional
@@ -192,7 +194,14 @@ class ScalarCompiler:
                 cache[id(e)] = got
             return got
 
-        return ev(expr)
+        try:
+            return ev(expr)
+        finally:
+            # ``ev`` reaches itself through its closure cell, a cycle only
+            # the cyclic collector frees, and with it the cache of every
+            # intermediate column and the resolver's columns: unset, the
+            # cycle goes at once
+            ev = None  # noqa: F841
 
     # ------------------------------------------------------------------
     def _eval(self, e: ir.Expr, ev, resolver: Resolver) -> MaskedCol:
@@ -239,6 +248,18 @@ class ScalarCompiler:
                       if c.data.dim() > 0), None)
         if nrows is None:
             raise ExecError("window function needs at least one column input")
+
+        def rows(c: MaskedCol) -> MaskedCol:
+            # a constant (SUM(1) OVER ...) comes as a 0-d tensor: one
+            # value a row, as SQL reads it
+            if c.data.dim() > 0:
+                return c
+            return MaskedCol(c.data.expand(nrows).contiguous(),
+                             None if c.mask is None
+                             else c.mask.expand(nrows).contiguous())
+
+        args, parts, orders = ([rows(c) for c in cs]
+                               for cs in (args, parts, orders))
         return compute_window(e.kind, args, parts, orders, e.order_desc,
                               e.arg1, nrows, row_mask, _dtype(e.type),
                               frame=e.frame)
@@ -581,7 +602,37 @@ class ScalarCompiler:
                     if target >= up
                     else torch.div(sub, up // target, rounding_mode="floor"))
             return MaskedCol(within.to(out_dt), v.mask)
+        if f == ir.DateTimeField.YEAR:
+            fast = self._extract_year_bounded(e, secs)
+            if fast is not None:
+                return MaskedCol(fast.to(out_dt), v.mask)
         return MaskedCol(dtk.extract_from_seconds(f, secs).to(out_dt), v.mask)
+
+    def _extract_year_bounded(self, e: ir.ExtractExpr,
+                              secs: torch.Tensor) -> Optional[torch.Tensor]:
+        """EXTRACT(YEAR) of an operand whose fragment stats bound it to
+        at most 64 years: ``lo_year`` plus the count of Jan-1 boundaries
+        at or below the value, one ``bucketize`` pass in place of the
+        civil calendar's ~40.  None when the stats give no such bound."""
+        from . import ranges as rng
+
+        r = rng._operand_epoch_seconds_range(e.operand)
+        if r is None:
+            return None
+        lo_s, hi_s, _nulls = r
+        try:
+            lo_y = _dt.datetime.fromtimestamp(lo_s, tz=_dt.timezone.utc).year
+            hi_y = _dt.datetime.fromtimestamp(hi_s, tz=_dt.timezone.utc).year
+        except (OverflowError, OSError, ValueError):
+            return None
+        if not 0 <= hi_y - lo_y <= 64:
+            return None
+        if hi_y == lo_y:
+            return torch.full_like(secs, lo_y, dtype=torch.int64)
+        bounds = np.asarray([calendar.timegm((y, 1, 1, 0, 0, 0))
+                             for y in range(lo_y + 1, hi_y + 1)], np.int64)
+        return torch.bucketize(secs, self._tensor(bounds, torch.int64),
+                               right=True) + lo_y
 
     def _date_trunc(self, e: ir.DateTruncExpr, ev) -> MaskedCol:
         v = ev(e.operand)

@@ -35,14 +35,16 @@ class DeviceCacheManager:
         self._maybe_evict()
 
     def note_use(self, column, nbytes: int) -> None:
-        """Record that a column's device copy exists / was touched."""
+        """Record that a column's device copies exist / were touched;
+        ``nbytes`` is their size now (a column may hold its whole copy
+        and copies of fragment selections)."""
         key = id(column)
         with self._lock:
-            if key in self._entries:
-                self._entries.move_to_end(key)
-            else:
-                self._entries[key] = (column, nbytes)
-                self._bytes += nbytes
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._entries[key] = (column, nbytes)
+            self._bytes += nbytes
         self._maybe_evict()
 
     def note_drop(self, column) -> None:

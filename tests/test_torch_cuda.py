@@ -2,8 +2,9 @@
 the shared-memory and the global-atomic mode and over the sorted group
 ids of the sort-based group-by, K1 at the shapes its design treats
 apart, and the main path, the sort route, scalar subqueries, joins,
-window functions and array columns on a CUDA session against the same
-session on the CPU.  Skips where there
+window functions, array columns and the executor's controls (fragment
+streaming and skipping, the watchdog, route feedback, EXPLAIN ANALYZE)
+on a CUDA session against the same session on the CPU.  Skips where there
 is no card.  On the card, without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -528,3 +529,68 @@ def test_windows_and_arrays_on_the_card(cuda, monkeypatch):
     # tolerance of FLOAT outputs in tests/test_torch_window.py)
     _same_results([q if isinstance(q, str) else q.__name__
                    for q in queries], out, f32_rtol=1e-6)
+
+
+def test_controls_on_the_card(cuda, monkeypatch):
+    """chip_smoke.py phase 9 at a small size on a CUDA session against a
+    CPU session: TPC-H Q1 and Q6 streamed in chunks (Q1 through K1, K3
+    and K4), Q1 under a watchdog time limit, a month of time-ordered taxi
+    rows over one fragment of three, taxi Q3 on the stats-bounded year,
+    and a GROUP BY whose two routes are both timed: the same rows, no
+    plain version on a CUDA tensor."""
+    import chip_smoke as cs
+
+    lineitem = cs.gen_lineitem(400_000)
+    taxi = cs.gen_taxi(300_000)
+    taxi["pickup_datetime"].sort()
+    nulls = cs.gen_nulls(100_000)
+    ts = hdk_tpu_torch.types.timestamp(hdk_tpu_torch.types.TimeUnit.SECOND,
+                                       False)
+    config = {"storage.fragment_size": 100_000,
+              "exec.scan_stream_bytes": 35 * 150_000}
+
+    def year_q3(hdk):
+        ht = hdk.scan("trips_sorted")
+        return ht.agg(["passenger_count",
+                       ht["pickup_datetime"].extract("year").name("y")],
+                      "count").run()
+
+    queries = [cs.TPCH_Q1, cs.TPCH_Q6, cs.MONTH_Q, year_q3,
+               cs.NULLS_GROUP_Q, cs.NULLS_GROUP_Q]
+    out = []
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            _refuse_plain_versions(monkeypatch)
+        hdk = hdk_tpu_torch.HDK(device=device, **config)
+        ex = hdk._executor
+        hdk.import_pydict(lineitem, name="lineitem",
+                          schema={"l_shipdate": ts})
+        hdk.import_pydict(dict(taxi), name="trips_sorted",
+                          schema={"pickup_datetime": ts})
+        hdk.import_pydict(nulls, name="t")
+        got = []
+        for q in queries:
+            before = hist.launches()
+            got.append((hdk.sql(q) if isinstance(q, str) else q(hdk))
+                       .to_numpy())
+            used = {k: hist.launches()[k] - before[k] for k in before}
+            if q == cs.TPCH_Q1:
+                assert ex._frag_stream_chunks == 4
+                if device == "cuda":
+                    assert all(used[k] > 0 for k in cs.STREAM_KERNELS), used
+            if q == cs.TPCH_Q6:
+                assert ex._frag_stream_chunks == 2
+            if q == cs.MONTH_Q:
+                assert ex._frag_prune_stats == {"selected": 1, "total": 3}
+        res = hdk.sql(cs.TPCH_Q1, watchdog_time_limit_ms=600_000)
+        assert ex._frag_stream_chunks == 4
+        got.append(res.to_numpy())
+        with pytest.raises(hdk_tpu_torch.exec.scalar.ExecError,
+                           match="watchdog"):
+            hdk.sql(cs.TPCH_Q1, watchdog_time_limit_ms=1).block()
+        sig = next(g for g, _ in ex._feedback._t)
+        assert set(ex._feedback.measured(sig)) == {"perfect", "sort"}
+        text = hdk.explain(cs.TPCH_Q1, analyze=True)
+        assert text.splitlines()[0].endswith(", 6 rows]")
+        out.append(got)
+    _same_results(queries + ["watchdog"], out)

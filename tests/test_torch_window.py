@@ -430,3 +430,25 @@ def test_whole_table_window_without_filter(package):
     assert out.column("s").to_pylist() == [7.5] * 4
     assert out.column("c").to_pylist() == [3] * 4
     assert out.column("m").to_pylist() == [1] * 4
+
+
+@pytest.mark.parametrize("package", [
+    pytest.param("hdk_tpu", marks=pytest.mark.xfail(
+        strict=True, reason="reference fault, ROADMAP C")),
+    "hdk_tpu_torch"])
+def test_constant_window_argument(package):
+    """A constant argument (SUM(1) OVER (PARTITION BY g)) counts each row
+    once: the partition's row count on every row (the reference hands
+    its window a 0-d array and raises)."""
+    table = pa.table({"g": [0, 1, 1, 2, 2, 2, 1], "v": [1.0] * 7})
+    sess = (hdk_tpu.HDK() if package == "hdk_tpu"
+            else hdk_tpu_torch.HDK(device="cpu"))
+    sess.import_arrow(table, name="t")
+    out = sess.sql("SELECT g, SUM(1) OVER (PARTITION BY g) AS n, "
+                   "COUNT(2) OVER (PARTITION BY g ORDER BY v ROWS BETWEEN "
+                   "UNBOUNDED PRECEDING AND CURRENT ROW) AS c "
+                   "FROM t").to_arrow()
+    assert out.column("n").to_pylist() == [1, 3, 3, 3, 3, 3, 3]
+    assert sorted(zip(out.column("g").to_pylist(),
+                      out.column("c").to_pylist())) == [
+        (0, 1), (1, 1), (1, 2), (1, 3), (2, 1), (2, 2), (2, 3)]
