@@ -32,13 +32,17 @@ Phases, each printed as it runs:
      key, and the first query again in a session whose group buffer
      starts below the group count (one widen-retry);
   7. joins, in a session of their own: J1 100M probe rows into a 10M-row
-     build and J2 the same with zipf(1.3) probe keys (the perfect
-     route), J3 100M probe rows into 10M build keys spread over
-     [0, 2^40) (the sorted-hash route; INNER and LEFT), J4 TPC-H Q3 (60M
-     lineitem rows; two perfect joins, then the sort-route GROUP BY) and
-     J5 an IN subquery (a SEMI join), each against a numpy oracle, with
-     its route, cold time, median warm latency and rows/s; a warm run
-     that builds a join table again fails;
+     build and J2 the same with zipf(1.3) probe keys, J3 100M probe rows
+     into 10M build keys spread over [0, 2^40) (INNER and LEFT), J4
+     TPC-H Q3 (60M lineitem rows; two joins, then the sort-route GROUP
+     BY) and J5 an IN subquery (a SEMI join), each against a numpy
+     oracle: a cold run, exploration runs until the join route A/B
+     (spread, value tables, sorted hash; each candidate's measured ms is
+     logged, an inadmissible one +inf) and TPC-H Q3's plan A/B settle,
+     then three warm runs on the settled route that build no join table;
+     J4's warm runs must skip the filtered build subtrees and read the
+     recycled tables ("perfect(recycled)"); J1 again in a session
+     without route feedback must take the spread route;
   8. window functions and array columns, in a session of their own: W1
      the top 10 per passenger count by ROW_NUMBER over 100M taxi rows
      (and the full RANK and DENSE_RANK columns), W2 a cumulative SUM, a
@@ -996,49 +1000,93 @@ def sketch_exact_check(out, data, executor, what):
 
 # -- phase 7: joins -------------------------------------------------------
 
-def join_query(run, card, label, rows, hist, executor, route, want=()):
-    """Cold run (checked for its route and the kernels it must launch),
-    then three warm runs that must build no join table again; logs the
-    cold time, the median warm latency and rows/s."""
+# the route label of each candidate of the join route A/B
+JOIN_LABEL = {"spread": "spread", "value": "perfect", "hash": "hash"}
+# TPC-H Q3's warm ms before a warm run skipped its build subtrees
+# (PERF.md §5: chip_smoke.py on one H100 80GB HBM3 at 700 W)
+J4_WARM_MS_BEFORE_SKIP = 14.540610999972614
+
+
+def join_query(run, card, label, rows, hist, executor, route=None, want=(),
+               inadmissible=(), admissible=()):
+    """Cold run (checked for the kernels it must launch), then
+    exploration runs until the plan A/B and every route A/B the query
+    reaches are settled (a run that explores nothing), then three warm
+    runs that must build no join table.  ``route``: the label the warm
+    runs must show; None takes the settled join route A/B's winner.
+    ``inadmissible`` / ``admissible``: candidates that must measure +inf
+    / a finite time.  Logs the cold time, each candidate's measured ms,
+    the median warm latency and rows/s; returns (result, {candidate:
+    measured ms} of the query's last join route A/B, warm seconds)."""
     before = hist.launches()
     builds0 = executor._join_builds
-    plans0 = len(executor._plan_feedback._cold)
-    t0 = time.perf_counter()
-    res = run()
-    res.block()
-    cold = time.perf_counter() - t0
-    got_route = executor._join_route
-    check(got_route == route, f"{label}: route {got_route}, want {route}")
-    used = {k: hist.launches()[k] - before[k] for k in before}
-    for k in want:
-        check(used[k] > 0, f"{label}: kernel {k} never launched ({used})")
-    if len(executor._plan_feedback._cold) > plans0:
-        # the eager-aggregation rewrite fired: the plan A/B runs the
-        # rewrite again (timed), then the original plan cold and timed,
-        # which builds the original's join tables; the warm runs below
-        # take the faster plan
+    fb, pfb = executor._feedback, executor._plan_feedback
+    seen = []  # (signature, explored?) of each route or plan choice
+
+    def spy_route(sig, routes, _choose=fb.choose):
+        got = _choose(sig, routes)
+        seen.append((sig, got[1]))
+        return got
+
+    def spy_plan(sig, variants, _choose=pfb.choose):
+        got = _choose(sig, variants)
+        seen.append((sig, got[1] is not None))
+        return got
+
+    fb.choose, pfb.choose = spy_route, spy_plan
+    try:
+        t0 = time.perf_counter()
+        res = run()
+        res.block()
+        cold = time.perf_counter() - t0
+        used = {k: hist.launches()[k] - before[k] for k in before}
+        for k in want:
+            check(used[k] > 0, f"{label}: kernel {k} never launched "
+                               f"({used})")
         explore = []
-        for _ in range(3):
+        sigs = [sig for sig, _ in seen]
+        while any(m for _, m in seen):
+            check(len(explore) < 10, f"{label}: the route A/Bs did not "
+                                     f"settle")
+            seen.clear()
             t0 = time.perf_counter()
             run().block()
             explore.append(time.perf_counter() - t0)
-        measured = {k[1]: v for k, v in executor._feedback._t.items()
-                    if k[0].startswith("eagerplan|")}
-        log(f"join {label}: plan A/B exploration runs_s={explore!r} "
-            f"measured_s={measured!r} [{card}]")
+            sigs += [sig for sig, _ in seen]
+    finally:
+        del fb.choose, pfb.choose
+    sigs = list(dict.fromkeys(sigs))
+    plans = {k[1]: v for k, v in fb._t.items()
+             if k[0].startswith("eagerplan|") and k[0] in sigs}
+    tune = [s for s in sigs if s.endswith("|tunejoin")]
+    measured = fb.measured(tune[-1]) if tune else {}
+    ms = {r: v * 1e3 for r, v in measured.items()}
+    for r in inadmissible:
+        check(measured.get(r) == float("inf"),
+              f"{label}: candidate {r} measured {ms.get(r)}, want +inf")
+    for r in admissible:
+        check(0 < measured.get(r, 0) < float("inf"),
+              f"{label}: candidate {r} measured {ms.get(r)}, want a time")
+    if route is None:
+        check(bool(tune), f"{label}: no join route A/B")
+        route = JOIN_LABEL[min(measured, key=measured.get)]
+    log(f"join {label}: exploration runs_s={explore!r} "
+        f"route_ab_ms={ms!r} plan_ab_s={plans!r} [{card}]")
     builds = executor._join_builds - builds0
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
         run().block()
         warm.append(time.perf_counter() - t0)
+        check(executor._join_route == route,
+              f"{label}: route {executor._join_route}, want {route}")
     check(executor._join_builds == builds0 + builds,
           f"{label}: a warm run built a join table again")
     lat = statistics.median(warm)
-    log(f"join {label}: route={got_route} rows={rows} cold_s={cold!r} "
+    log(f"join {label}: route={route} rows={rows} cold_s={cold!r} "
         f"warm_latency_s={lat!r} rows_per_s={rows / lat!r} "
         f"cold_builds={builds} warm_builds=0 launches={used} [{card}]")
-    return res
+    return res, ms, lat
 
 
 def drop_tables(hdk, *names):
@@ -1052,11 +1100,18 @@ def drop_tables(hdk, *names):
 
 def join_phase(hdk_mod, card, hist, device="cuda", scale=1.0,
                hash_rows=(100_000_000, 10_000_000),
-               want_q3=("groupby_sums",)):
+               want_q3=("groupby_sums",), spread_min_rows=None):
     """J1-J5 in a session of their own, each against a numpy oracle:
-    counts and keys exactly, sums of float32 values to rtol 1e-6."""
+    counts and keys exactly, sums of float32 values to rtol 1e-6.  Each
+    join takes the route its route A/B settles on (J4: the recycled build
+    side); J1 again in a session without route feedback must take the
+    spread route (``spread_min_rows`` lowers ``spread_join_min_rows``
+    there, for a run below its 4M probe rows)."""
     hdk = hdk_mod.HDK(device=device)
     ex = hdk._executor
+    spread_ok = (("spread", "value", "hash")
+                 if int(100_000_000 * scale)
+                 >= hdk.config.exec.join.spread_join_min_rows else ())
 
     # J1: 100M probe rows into a 10M-row build (bench_suite.bench_join)
     trips, payments = gen_join(scale, seed=11)
@@ -1065,16 +1120,19 @@ def join_phase(hdk_mod, card, hist, device="cuda", scale=1.0,
     fee_of[payments["k"]] = payments["fee"]
     tj = hdk.import_pydict(trips, name="trips_j")
     pj = hdk.import_pydict(payments, name="payments_j")
-    res = join_query(lambda: tj.join(pj, "k", "k").agg([], "count",
-                                                        "sum(fee)").run(),
-                     card, "J1", n_probe, hist, ex, "perfect")
+    res, _, _ = join_query(
+        lambda: tj.join(pj, "k", "k").agg([], "count", "sum(fee)").run(),
+        card, "J1", n_probe, hist, ex, admissible=spread_ok)
     count, fee = res.to_numpy().values()
     equal(count, [n_probe], "J1 count")
     close(fee, [fee_of[trips["k"]].sum()], 1e-6, "J1 sum(fee)")
 
-    # J5: an IN subquery over J1's tables (a SEMI join)
-    res = join_query(lambda: hdk.sql(J5_IN), card, "J5", n_probe, hist, ex,
-                     "perfect")
+    # J5: an IN subquery over J1's tables (a SEMI join: no spread route)
+    # (its filtered build side is recycled from the second run on, which
+    # bypasses the route A/B)
+    res, _, _ = join_query(lambda: hdk.sql(J5_IN), card, "J5", n_probe,
+                           hist, ex, route="perfect(recycled)",
+                           inadmissible=("spread",))
     count, amt = res.to_numpy().values()
     in_set = np.zeros(payments["k"].size, bool)
     in_set[payments["k"][payments["fee"].astype(np.float64) > 4.0]] = True
@@ -1084,35 +1142,60 @@ def join_phase(hdk_mod, card, hist, device="cuda", scale=1.0,
     del sel, in_set
     drop_tables(hdk, "trips_j", "payments_j")
 
-    # J2: zipf(1.3) probe keys (bench_suite.bench_zipf_join)
+    # J1 forced onto the spread route: without route feedback the static
+    # order (spread > value > hash) applies; J1's build keys are a
+    # permutation of [0, 10M) (a complete table) and fee is float32
+    cfg = {"exec.enable_route_feedback": False}
+    if spread_min_rows is not None:
+        cfg["exec.join.spread_join_min_rows"] = spread_min_rows
+    hs = hdk_mod.HDK(device=device, **cfg)
+    ts_ = hs.import_pydict(trips, name="trips_s")
+    ps_ = hs.import_pydict(payments, name="payments_s")
+    res, _, _ = join_query(
+        lambda: ts_.join(ps_, "k", "k").agg([], "count", "sum(fee)").run(),
+        card, "J1_forced_spread", n_probe, hist, hs._executor,
+        route="spread")
+    count, fee = res.to_numpy().values()
+    equal(count, [n_probe], "J1 spread count")
+    close(fee, [fee_of[trips["k"]].sum()], 1e-6, "J1 spread sum(fee)")
+    drop_tables(hs, "trips_s", "payments_s")
+    del hs, ts_, ps_
+
+    # J2: zipf(1.3) probe keys (bench_suite.bench_zipf_join), in a session
+    # of its own: the route A/B keys its times by plan shape, which J2
+    # shares with J1
     trips, payments = gen_join(scale, seed=17)
     fee_of[payments["k"]] = payments["fee"]
-    tz = hdk.import_pydict(trips, name="trips_z")
-    pz = hdk.import_pydict(payments, name="payments_z")
-    res = join_query(lambda: tz.join(pz, "k", "k").agg([], "count",
-                                                        "sum(fee)").run(),
-                     card, "J2", n_probe, hist, ex, "perfect")
+    hz = hdk_mod.HDK(device=device)
+    tz = hz.import_pydict(trips, name="trips_z")
+    pz = hz.import_pydict(payments, name="payments_z")
+    res, _, _ = join_query(
+        lambda: tz.join(pz, "k", "k").agg([], "count", "sum(fee)").run(),
+        card, "J2", n_probe, hist, hz._executor, admissible=spread_ok)
     count, fee = res.to_numpy().values()
     equal(count, [n_probe], "J2 count")
     close(fee, [fee_of[trips["k"]].sum()], 1e-6, "J2 sum(fee)")
     del trips, payments, fee_of
-    drop_tables(hdk, "trips_z", "payments_z")
+    drop_tables(hz, "trips_z", "payments_z")
+    del hz, tz, pz
 
-    # J3: the sorted-hash route (build keys spread over [0, 2^40))
+    # J3: the sorted-hash route (build keys spread over [0, 2^40): no
+    # perfect table, so neither spread nor value)
     probe, build, row = gen_hash_join(*hash_rows)
     th = hdk.import_pydict(probe, name="probe_h")
     bh = hdk.import_pydict(build, name="build_h")
     found = (row >= 0) & ~np.ma.getmaskarray(probe["k"])
     fee_sum = build["fee"][row[found]].astype(np.float64).sum()
-    res = join_query(lambda: th.join(bh, "k", "k").agg([], "count",
-                                                        "sum(fee)").run(),
-                     card, "J3_inner", hash_rows[0], hist, ex, "hash")
+    res, _, _ = join_query(
+        lambda: th.join(bh, "k", "k").agg([], "count", "sum(fee)").run(),
+        card, "J3_inner", hash_rows[0], hist, ex,
+        inadmissible=("spread", "value"))
     count, fee = res.to_numpy().values()
     equal(count, [int(found.sum())], "J3 inner count")
     close(fee, [fee_sum], 1e-6, "J3 inner sum(fee)")
-    res = join_query(lambda: th.join(bh, "k", "k", how="left").agg(
+    res, _, _ = join_query(lambda: th.join(bh, "k", "k", how="left").agg(
         [], "count", "count(fee)").run(), card, "J3_left", hash_rows[0],
-        hist, ex, "hash")
+        hist, ex, inadmissible=("spread", "value"))
     count, n_fee = res.to_numpy().values()
     equal(count, [hash_rows[0]], "J3 left count(*)")
     equal(count - n_fee, [hash_rows[0] - int(found.sum())],
@@ -1120,15 +1203,22 @@ def join_phase(hdk_mod, card, hist, device="cuda", scale=1.0,
     del probe, build, row, found
     drop_tables(hdk, "probe_h", "build_h")
 
-    # J4: TPC-H Q3 (bench_suite.bench_tpch_q3)
+    # J4: TPC-H Q3 (bench_suite.bench_tpch_q3); its warm runs skip the
+    # filtered build subtrees and read the recycled tables
     tables = dict(zip(("customer3", "orders3", "lineitem3"),
                       gen_tpch_q3(scale)))
     for name, data in tables.items():
         hdk.import_pydict(data, name=name,
                           schema=q3_schema(hdk_mod.types, name))
-    res = join_query(lambda: hdk.sql(TPCH_Q3), card, "J4_tpch_q3",
-                     tables["lineitem3"]["l_orderkey"].size, hist, ex,
-                     "perfect", want=want_q3)
+    res, _, lat = join_query(
+        lambda: hdk.sql(TPCH_Q3), card, "J4_tpch_q3",
+        tables["lineitem3"]["l_orderkey"].size, hist, ex,
+        route="perfect(recycled)", want=want_q3)
+    check(bool(ex._join_skip_rhs), "J4: the warm runs skipped no build "
+                                   "subtree")
+    log(f"join J4_tpch_q3: warm_ms={lat * 1e3!r} against "
+        f"{J4_WARM_MS_BEFORE_SKIP!r} before build subtrees were skipped; "
+        f"skipped nodes={len(ex._recycled_nodes)} [{card}]")
     out = res.to_numpy()
     top, revenue, orders = q3_oracle(*tables.values())
     equal(out["l_orderkey"], top, "J4 l_orderkey")

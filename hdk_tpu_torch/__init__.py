@@ -1,9 +1,11 @@
 """hdk_tpu_torch — the PyTorch/CUDA port of hdk_tpu's query engine.
 
 The port runs scan -> Project/Filter chain (with window functions) ->
-joins (INNER, LEFT, SEMI, ANTI on the perfect or the sorted-hash route,
-loop joins; RIGHT/FULL OUTER and the IN/EXISTS/correlated subqueries that
-bind to them) -> GROUP BY (dense perfect-hash or sort-based, every
+joins (INNER, LEFT, SEMI, ANTI on the perfect route's value tables, its
+delta-spread variant or the sorted-hash route, chosen by a measured A/B
+over large probes; loop joins; RIGHT/FULL OUTER and the
+IN/EXISTS/correlated subqueries that bind to them; a warm run skips a
+build subtree whose tables are recycled) -> GROUP BY (dense perfect-hash or sort-based, every
 aggregate) or scalar aggregate -> ORDER BY / LIMIT -> result, with UNION
 ALL, VALUES, and array columns (TOP_K/BOTTOM_K, CARDINALITY, subscript,
 UNNEST), on an explicit torch device.  The histograms of the group-by
@@ -304,7 +306,9 @@ class HDK:
         """The plan text, one node a line, root first.  ``analyze=True``
         runs the query with every step ending in a device synchronize and
         adds each step's [ms, rows] to its line; a Project or Filter that
-        ran inside a step shows that step's time and its own live rows.
+        ran inside a step shows that step's time and its own live rows; a
+        node of a join's build subtree that recycled build tables made
+        unnecessary says so ("recycled: not run").
         Trailer lines give the NDV sample's host time and the step builds
         of the run."""
         from .exec.explain import explain_dag
@@ -333,6 +337,8 @@ class HDK:
             ex._analyze = False
         notes = {nid: f"{ms:.1f} ms, {rows} rows"
                  for nid, (ms, rows) in ex._step_times.items()}
+        for nid in ex._recycled_nodes:  # a build subtree that did not run
+            notes[nid] = "recycled: not run"
         for nid, (step, ms, rows) in ex._fused_times.items():
             notes.setdefault(nid, f"in the {step} step: {ms:.1f} ms, "
                                   f"{rows} rows")

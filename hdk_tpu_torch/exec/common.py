@@ -1,9 +1,9 @@
 """Executor data structures and small helpers (counterpart of
 hdk_tpu/exec/common.py: ExecTable, the lazy scan, pruned scan and
 join-output columns, the identity- and plan-keyed caches of join build
-tables, consumer analysis, broadcasting, the schema signature of
-compiled-step keys and the rebinding of a join's residual onto its
-output)."""
+tables, the demanded-columns and consumer analyses, broadcasting, the
+schema signature of compiled-step keys and the rebinding of a join's
+residual onto its output)."""
 
 from __future__ import annotations
 
@@ -259,6 +259,63 @@ class _PlanArtifactCache:
 
 # nodes that fuse into their consumer's step rather than execute alone
 _CHAIN_NODES = (nd.Project, nd.Filter)
+
+
+def _column_demand(order, root) -> Dict[int, Optional[set]]:
+    """Per node, the output columns its consumers may read (None: all),
+    from one backward pass over the topological order.  The spread join
+    reads it to serve only build columns, and raises where a consumer
+    pulls another, so each rule over-approximates what this package's
+    executor reads of its input:
+
+    * Project: ``Executor._chain_env`` evaluates every expression, even
+      one no consumer reads, so every expression's references count;
+    * Filter: passes its consumers' demand through (same columns), plus
+      its condition's references;
+    * Aggregate: ``_agg_used`` reads the keys' and the aggregates'
+      operands (both operands), the fused aggregate -> ORDER BY step, the
+      identity pass, the range probe and the NDV sample read subsets;
+    * Sort: ``_exec_sort`` with no Project in its chain (and its empty
+      input path, which compacts) reads every column;
+    * Unnest and UNION ALL read every column of each input;
+    * Join: a join passes its inputs' columns through on demand, but
+      SEMI/ANTI gather every probe column, a residual compacts its
+      output and loop joins compact both inputs: every column of both,
+      plus the key and residual references;
+    * the root is materialized whole; Scan and Values read no input."""
+    demand: Dict[int, Optional[set]] = {root.id: None}
+
+    def want(n: nd.Node, cols: Optional[set]) -> None:
+        cur = demand.get(n.id, set())
+        if cur is None:
+            return
+        demand[n.id] = None if cols is None else (cur | cols)
+
+    def want_refs(exprs) -> None:
+        for e in exprs:
+            if e is not None:
+                for ref in ir.collect_column_refs(e):
+                    want(ref.node, {ref.index})
+
+    for node in reversed(order):
+        d = demand.get(node.id, set())
+        if isinstance(node, nd.Project):
+            want_refs(node.exprs)
+        elif isinstance(node, nd.Filter):
+            want(node.inputs[0], d)
+            want_refs([node.condition])
+        elif isinstance(node, nd.Aggregate):
+            want_refs(node.keys)
+            want_refs(node.aggs)
+        elif isinstance(node, nd.Join):
+            for i in node.inputs:
+                want(i, None)
+            want_refs([e for pair in node.key_pairs for e in pair])
+            want_refs([node.residual])
+        else:  # Sort, Unnest, UNION ALL, and any other kind
+            for i in node.inputs:
+                want(i, None)
+    return demand
 
 
 def _consumer_kinds(order, root) -> Dict[int, List[str]]:

@@ -21,9 +21,12 @@ Controls around a step, as in the JAX package: fragment skipping (a
 chain's Filters bound scan columns whose fragment stats exclude
 fragments; only the survivors reach the device), fragment-streamed
 aggregation (``agg_exec.py``), the watchdog's row budget and deadline,
-measured route feedback (``feedback.py``) and EXPLAIN ANALYZE
+measured route feedback (``feedback.py``), EXPLAIN ANALYZE
 (``_analyze``: every step ends in a device synchronize and records its
-time and rows in ``_step_times``).
+time and rows in ``_step_times``), and the skip of a join's build
+subtree whose build tables are recycled (``_plan_recycle_skips``).  Each
+query first computes every node's demanded output columns
+(``common._column_demand``), which the spread join reads.
 """
 
 from __future__ import annotations
@@ -43,9 +46,9 @@ from . import sort as srt
 from .agg_exec import AggExecMixin, _window
 from .codecache import CodeCache, chain_key
 from .common import (ExecTable, _CHAIN_NODES, _IdentityKeyedCache,
-                     _LazyScanColumns, _LazyThunkColumns,
+                     _LazyScanColumns,
                      _PlanArtifactCache, _PrunedScanColumns, _broadcast,
-                     _consumer_kinds, _schema_sig)
+                     _column_demand, _consumer_kinds, _schema_sig)
 from .explain import _node_line
 from .feedback import PlanChoiceFeedback, RouteFeedback, synchronize
 from .join_exec import JoinExecMixin
@@ -83,8 +86,14 @@ class Executor(AggExecMixin, JoinExecMixin):
             256, byte_budget=config.cache.hashtable_cache_size,
             enabled=config.cache.enable_hashtable_cache)
         self._join_route: Optional[str] = None  # the last equi-join's route
-        self._join_builds = 0  # join build tables made in this session
-        # per query: each node's consumer kinds and direct consumers
+        self._join_builds = 0  # join build and value tables made
+        # per query: each join whose build subtree is skipped (its
+        # recycled build-side metadata by join id), and the skipped nodes
+        self._join_skip_rhs: Dict[int, tuple] = {}
+        self._recycled_nodes: set = set()
+        # per query: each node's demanded output columns (None: all), its
+        # consumer kinds and its direct consumers
+        self._demand: Optional[Dict[int, Optional[set]]] = None
         self._consumers: Optional[Dict[int, List[str]]] = None
         self._direct_consumers: Optional[Dict[int, list]] = None
         # EXPLAIN ANALYZE: force and time every step; a step's (ms, rows)
@@ -117,6 +126,7 @@ class Executor(AggExecMixin, JoinExecMixin):
     def _execute_logged(self, dag: nd.QueryDag) -> ExecTable:
         results: Dict[int, ExecTable] = {}
         order = dag.topo_order()
+        self._demand = _column_demand(order, dag.root)
         self._consumers = _consumer_kinds(order, dag.root)
         self._frag_prune_stats = None
         self._frag_stream_chunks = None
@@ -142,7 +152,10 @@ class Executor(AggExecMixin, JoinExecMixin):
         deadline = (_time.monotonic() + wd.time_limit_ms / 1e3
                     if wd.enable and wd.time_limit_ms else None)
         self._deadline = deadline
+        skip_nodes = self._plan_recycle_skips(order)
         for node in order:
+            if node.id in skip_nodes:
+                continue  # a build subtree the recycled artifacts cover
             if node.id in fused_aggs and node.id not in results:
                 continue  # runs with the consuming Sort
             if isinstance(node, _CHAIN_NODES) and node is not dag.root:
@@ -185,12 +198,52 @@ class Executor(AggExecMixin, JoinExecMixin):
                   results[dag.root.id].nrows)
         return results[dag.root.id]
 
+    def _plan_recycle_skips(self, order) -> set:
+        """The nodes of build subtrees that need not run: for each
+        equi-join (no residual) whose plan-keyed artifacts cover its build
+        side (``_join_plan_ready``), the nodes consumed only by its build
+        input or by nodes already taken, scans left out (a scan moves no
+        data itself).  The join then reads a stub of its build side
+        (``_join_skip_rhs``).  A build side that is a bare scan skips
+        nothing."""
+        self._join_skip_rhs = {}
+        skip: set = set()
+        for n in order:
+            if (not isinstance(n, nd.Join) or not n.key_pairs
+                    or n.residual is not None):
+                continue
+            bp = self._join_build_plan_sig(n)
+            if bp is None or not self._join_plan_ready(n, bp):
+                continue
+            included: set = set()
+
+            def take(m: nd.Node) -> None:
+                if m.id in included or isinstance(m, nd.Scan):
+                    return
+                cons = self._direct_consumers.get(m.id, [])
+                if cons and all((c is n and pos == 1) or c.id in included
+                                for c, pos in cons):
+                    included.add(m.id)
+                    for i in m.inputs:
+                        take(i)
+
+            take(n.inputs[1])
+            if not included:
+                continue
+            self._join_skip_rhs[n.id] = self._ht_plan_cache.get((bp, "meta"))
+            skip |= included
+            _LOG.debug1("join #%d: recycled build artifacts, %d build-side "
+                        "node(s) skipped", n.id, len(included))
+        self._recycled_nodes = skip
+        return skip
+
     def _record_step(self, node: nd.Node, out: ExecTable,
                      t0: float) -> None:
-        """EXPLAIN ANALYZE: force the step's output (lazy join columns,
-        queued device work), then record its time and rows, and those of
-        the Project/Filter nodes fused into it."""
-        self._force_table(out)
+        """EXPLAIN ANALYZE: force the step's output (the lazy join
+        columns its consumers demand, queued device work), then record its
+        time and rows, and those of the Project/Filter nodes fused into
+        it."""
+        self._force_table_demanded(out, (self._demand or {}).get(node.id))
         ms = (_time.monotonic() - t0) * 1e3
         self._step_times[node.id] = (ms, out.nrows)
         # the nodes below this step down to the steps it read; a cached
@@ -209,12 +262,10 @@ class Executor(AggExecMixin, JoinExecMixin):
         self._fused_rows = {}
 
     def _force_table(self, table: ExecTable) -> None:
-        """Compute a table's lazy columns and wait for the device.  Scan
-        columns not read yet stay on the host: a scan moves no data
+        """Compute every lazy column of a table and wait for the device.
+        Scan columns not read yet stay on the host: a scan moves no data
         itself, its consumers copy what they read."""
-        if isinstance(table.columns, _LazyThunkColumns):
-            list(table.columns)  # computes each column
-        synchronize(self.device)
+        self._force_table_demanded(table, None)
 
     # ------------------------------------------------------------------
     def _resolve_chain(self, node: nd.Node, results

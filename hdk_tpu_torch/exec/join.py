@@ -11,7 +11,15 @@ Two routes, as in the JAX package:
   hash collisions;
 * the **perfect join**: one integer-like key over a bounded range, unique
   on the build side: build row ids scattered into a dense table indexed
-  by ``key - min_key``.
+  by ``key - min_key``.  Its output reads **value tables**: each build
+  column scattered once into key-slot order, so a probe row reads a
+  column with one ``vt[slot]`` gather (no ``rows[slot]`` before it), and
+  matching a complete table (every slot occupied) reads no table at all;
+* the **delta-spread join** (``spread_inner_fk``), for a complete table
+  whose probe rows all match: one sort of build and probe slots, the
+  build columns' deltas following its permutation, and a prefix sum per
+  column word give every probe row its build row's values, in slot
+  order.
 
 NULL keys never match: the two sides fold a NULL (or filter-dead) key
 into disjoint hash sentinels, and the perfect table leaves them out.
@@ -143,9 +151,11 @@ def _slot_index(key: MaskedCol, min_key: int, range_size: int):
 
 
 def build_perfect(build_key: MaskedCol, min_key: int, range_size: int):
-    """(table, unique, n_set).  Invalid rows scatter into one extra slot
-    that is cut off; a duplicate key loses a row in the scatter, which
-    ``n_set < n_valid`` detects (which duplicate wins is unspecified)."""
+    """(table, unique, n_set, slots).  Invalid rows scatter into one extra
+    slot that is cut off; a duplicate key loses a row in the scatter,
+    which ``n_set < n_valid`` detects (which duplicate wins is
+    unspecified).  ``slots``: each build row's slot (``build_slots``),
+    from the same pass, which the value tables scatter through."""
     n = build_key.data.shape[0]
     dev = build_key.data.device
     pos = build_slots(build_key, min_key, range_size)
@@ -153,15 +163,8 @@ def build_perfect(build_key: MaskedCol, min_key: int, range_size: int):
     rows[pos] = torch.arange(n, dtype=torch.int32, device=dev)
     rows = rows[:range_size]
     n_set = (rows >= 0).sum()
-    return PerfectTable(rows, min_key), n_set == (pos < range_size).sum(), n_set
-
-
-def probe_perfect(table: PerfectTable, probe_key: MaskedCol,
-                  range_size: int) -> torch.Tensor:
-    """Per probe row, its build row id (-1: no match; NULL never
-    matches)."""
-    slots, in_range = perfect_slots(probe_key, table.min_key, range_size)
-    return torch.where(in_range, table.rows[slots], -1)
+    return (PerfectTable(rows, min_key), n_set == (pos < range_size).sum(),
+            n_set, pos)
 
 
 def perfect_slots(probe_key: MaskedCol, min_key: int, range_size: int):
@@ -186,3 +189,82 @@ def build_slots(build_key: MaskedCol, min_key: int,
     keys."""
     idx, valid = _slot_index(build_key, min_key, range_size)
     return torch.where(valid, idx, range_size)
+
+
+def build_value_table(col: MaskedCol, slots: torch.Tensor,
+                      range_size: int):
+    """(data, mask or None): one build column scattered into key-slot
+    order over ``range_size + 1`` entries, the last one (where NULL and
+    out-of-range keys land) cut off.  The caller guarantees unique build
+    keys, so every kept slot is written once; an unoccupied slot holds
+    zero (and a False mask)."""
+    dev = col.data.device
+    shape = (range_size + 1,) + tuple(col.data.shape[1:])
+    vt = torch.zeros(shape, dtype=col.data.dtype, device=dev)
+    vt[slots] = col.data
+    vm = None
+    if col.mask is not None:
+        vm = torch.zeros(shape, dtype=torch.bool, device=dev)
+        vm[slots] = col.mask
+        vm = vm[:range_size]
+    return vt[:range_size], vm
+
+
+def _words(vt: torch.Tensor):
+    """A 1-D value table as int64 words (each at most 32 bits wide) and
+    the inverse that rebuilds the column from them."""
+    dt = vt.dtype
+    if dt == torch.float32:
+        return ([vt.view(torch.int32).to(torch.int64)],
+                lambda w: w[0].to(torch.int32).view(torch.float32))
+    if dt == torch.bool:
+        return [vt.to(torch.int64)], lambda w: w[0] != 0
+    if dt == torch.int64:
+        # two 32-bit words: lo in [0, 2^32), hi in [-2^31, 2^31)
+        return ([vt & 0xFFFFFFFF, vt >> 32],
+                lambda w: (w[1] << 32) | w[0])
+    if dt in (torch.int8, torch.int16, torch.int32, torch.uint8):
+        return [vt.to(torch.int64)], lambda w: w[0].to(dt)
+    raise ValueError(f"spread_inner_fk: no exact delta encoding of {dt}")
+
+
+def spread_inner_fk(probe_slot: torch.Tensor, vts, range_size: int):
+    """The delta-spread FK-join output (the JAX package's gather-free
+    route, here a candidate the route A/B measures).
+
+    For a complete perfect table (unique build keys in every slot) and
+    probe rows that all match: the key ``slot << 1 | side`` (build 0,
+    probe 1; it fits int32, as ``range_size`` is at most 2^24) puts each
+    build row at the head of its slot's run.  Each column word's deltas
+    in slot order ride one sort of build and probe keys (``torch.sort``
+    carries no payloads: each payload is gathered through the sort's
+    permutation), the probe rows carrying 0, and a prefix sum rebuilds
+    at every row the word of its slot.  Deltas and sums are int64, so
+    every prefix sum is exactly a word and nothing wraps.
+
+    ``vts``: [(data, mask or None), ...], 1-D value tables in slot order.
+    Returns (is_probe, [(data, mask or None), ...]) over ``range_size +
+    n_probe`` rows in slot order; the build rows are dead rows under
+    ``is_probe``."""
+    dev = probe_slot.device
+    npr = probe_slot.shape[0]
+    key = torch.cat([
+        torch.arange(range_size, dtype=torch.int32, device=dev) << 1,
+        (probe_slot.to(torch.int32) << 1) | 1])
+    skey, perm = torch.sort(key)
+    zeros = torch.zeros((npr,), dtype=torch.int64, device=dev)
+
+    def spread(word: torch.Tensor) -> torch.Tensor:
+        delta = torch.cat([word[:1], word[1:] - word[:-1], zeros])
+        # int64 in, int64 out: torch.cumsum keeps an int64 input's dtype
+        return torch.cumsum(delta[perm], 0)
+
+    cols = []
+    for data, mask in vts:
+        words, rebuild = _words(data)
+        out = rebuild([spread(w) for w in words])
+        om = None
+        if mask is not None:
+            om = spread(mask.to(torch.int64)) != 0
+        cols.append((out, om))
+    return (skey & 1) == 1, cols

@@ -3,7 +3,7 @@
 CUDA card, for comparing two trees in one call.
 
     python3 k1_ab.py --tree DIR [--label NAME] [--kernel k1|k2|k3|k4] [--sweep]
-                     [--queries main|q3]
+                     [--queries main|q3|joins]
 
 ``--kernel k1`` (the default) times K1, ``groupby_sums``:
 
@@ -54,6 +54,10 @@ kernel has it) instead.
 phase 7's J4: 1.5M customers, 15M orders, 60M lineitem rows; two perfect
 joins, then the sort-route GROUP BY whose float SUM is K1 over sorted
 ids), its warm latency beside the same numbers for the kernel.
+``--queries joins`` times phase 7's J1 and J2 (100M probe rows into a
+10M-row build), J5 (an IN subquery) and TPC-H Q3 instead, each after six
+runs that let the tree's route and plan A/Bs settle, with the route the
+last run took.
 """
 
 from __future__ import annotations
@@ -427,17 +431,49 @@ def query_rows(mod, cs):
     return out
 
 
-def q3_rows(mod, cs):
-    """Warm latency of TPC-H Q3 (phase 7's J4)."""
+def q3_rows(mod, cs, settle: int = 0):
+    """Warm latency of TPC-H Q3 (phase 7's J4), after ``settle`` runs."""
     hdk = mod.HDK(device="cuda")
     tables = dict(zip(("customer3", "orders3", "lineitem3"),
                       cs.gen_tpch_q3()))
     for name, data in tables.items():
         hdk.import_pydict(data, name=name, schema=cs.q3_schema(mod.types,
                                                                name))
+    for _ in range(settle):
+        hdk.sql(cs.TPCH_Q3).block()
     out = {"tpch_q3": warm_latency(lambda: hdk.sql(cs.TPCH_Q3))}
+    out["tpch_q3"]["route"] = hdk._executor._join_route
     for name in tables:
         hdk.drop_table(name)
+    return out
+
+
+def join_rows(mod, cs):
+    """Warm latency of phase 7's J1, J2, J5 and TPC-H Q3 (J4), each in a
+    session of its own, after six runs that let a tree's route and plan
+    A/Bs settle and its build tables be made."""
+    def settled(run):
+        for _ in range(6):
+            run().block()
+        return warm_latency(run)
+
+    out = {}
+    for name, seed in (("j1", 11), ("j2", 17)):
+        hdk = mod.HDK(device="cuda")
+        trips, payments = cs.gen_join(seed=seed)
+        tj = hdk.import_pydict(trips, name="trips_j")
+        pj = hdk.import_pydict(payments, name="payments_j")
+        out[name] = settled(lambda: tj.join(pj, "k", "k").agg(
+            [], "count", "sum(fee)").run())
+        out[name]["route"] = hdk._executor._join_route
+        if name == "j1":
+            out["j5"] = settled(lambda: hdk.sql(cs.J5_IN))
+            out["j5"]["route"] = hdk._executor._join_route
+        for t in ("trips_j", "payments_j"):
+            hdk.drop_table(t)
+        del hdk, tj, pj, trips, payments
+        torch.cuda.empty_cache()
+    out.update(q3_rows(mod, cs, settle=6))
     return out
 
 
@@ -450,9 +486,11 @@ def main() -> None:
                     default="k1")
     ap.add_argument("--no-queries", action="store_true",
                     help="k2/k3/k4: time the kernel alone")
-    ap.add_argument("--queries", choices=("main", "q3"), default="main",
-                    help="q3: time TPC-H Q3 in place of the kernel's "
-                         "main-path queries")
+    ap.add_argument("--queries", choices=("main", "q3", "joins"),
+                    default="main",
+                    help="q3: time TPC-H Q3, joins: J1, J2, J5 and "
+                         "TPC-H Q3, in place of the kernel's main-path "
+                         "queries")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_ab.py needs a CUDA card")
@@ -483,6 +521,7 @@ def main() -> None:
             result["kernels"] = int_kernel_rows(hist, onehot, args.kernel)
             if not args.no_queries:
                 rows = (q3_rows if args.queries == "q3"
+                        else join_rows if args.queries == "joins"
                         else k2_query_rows if args.kernel == "k2"
                         else int_query_rows)
                 result["queries"] = rows(hdk_tpu_torch, cs)
@@ -493,7 +532,8 @@ def main() -> None:
                           "card": cs.gpu_line(), "sweep": sweep_rows(hist)}),
               flush=True)
         return
-    rows = q3_rows if args.queries == "q3" else query_rows
+    rows = {"q3": q3_rows, "joins": join_rows}.get(args.queries,
+                                                    query_rows)
     print(json.dumps({"label": args.label, "tree": tree,
                       "card": cs.gpu_line(),
                       "kernels": kernel_rows(hist, onehot),

@@ -8,8 +8,9 @@ chip_smoke.py.
 Runs HN1 and HN2 (high-NDV group-by, 100M rows), holistic Q1-Q3 (10M
 rows), J1 (100M probe rows into a 10M-row build), TPC-H Q3 (60M
 lineitem rows) and the window queries W1-W3 (100M taxi rows, 60M
-lineitem rows) on the data and seeds of chip_smoke.py's phases 5-8: two
-warm runs each, then one run under ``torch.profiler``.  Per query it prints the
+lineitem rows) on the data and seeds of chip_smoke.py's phases 5-8: six
+runs each (enough for a join's route A/B and TPC-H Q3's plan A/B to
+settle), then one run under ``torch.profiler``.  Per query it prints the
 host wall time of the profiled run, the device busy time (the union of
 the kernels' intervals), the idle share ``1 - busy / wall``, and the top
 kernels and operators by device time; ``--out`` writes the same as JSON.
@@ -59,8 +60,10 @@ def _busy_us(intervals) -> float:
 
 
 def profile_query(label: str, run, top: int) -> dict:
-    """Two warm runs, then one profiled run of ``run``."""
-    for _ in range(2):
+    """Six runs (the first runs of a join or a plan time its route or
+    plan candidates, see ``exec/feedback.py``), then one profiled run of
+    ``run``."""
+    for _ in range(6):
         run().block()
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():

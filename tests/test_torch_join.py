@@ -3,9 +3,9 @@ cases of tests/test_join.py, tests/test_outer_joins.py (but the
 multi-device one) and tests/test_loop_join.py, each run through
 ``hdk_tpu.HDK()`` and ``hdk_tpu_torch.HDK(device="cpu")`` over the same
 seeded numpy tables.  Each case also requires the port to take the
-reference's route on its first run ("perfect" or "hash"; the
-reference's variants of the perfect route, its gather-free "spread" and
-its plan-recycled build, count as "perfect").  Join output order is unspecified in SQL, so results compare
+reference's route label, the perfect route's variants included
+("spread", "perfect(recycled)", "perfect(spread-demoted:f64)").  Join
+output order is unspecified in SQL, so results compare
 as row multisets unless the query orders them.  Tolerances: see
 tests/torch_twin.py."""
 
@@ -21,8 +21,7 @@ def _nullable(values, null_at):
     return [None if i in null_at else v for i, v in enumerate(values)]
 
 
-@pytest.fixture(scope="module")
-def sessions():
+def _tables():
     rng = np.random.default_rng(43)
     n_l, n_r = 3000, 500
     big_l = rng.integers(0, 50, 800).astype(np.float64).tolist()
@@ -80,7 +79,23 @@ def sessions():
         "b": {"y": rng.integers(0, 20, 35), "w": rng.integers(0, 9, 35)},
         "big": {"z": np.arange(9000)},
     }
-    return twin_sessions(tables)
+    return tables
+
+
+@pytest.fixture(scope="module")
+def sessions():
+    return twin_sessions(_tables())
+
+
+@pytest.fixture(scope="module")
+def spread_port():
+    """The port over the same tables with the spread route admitted at
+    any probe size (``spread_join_min_rows`` 1)."""
+    pt = hdk_tpu_torch.HDK(device="cpu",
+                           **{"exec.join.spread_join_min_rows": 1})
+    for name, data in _tables().items():
+        pt.import_pydict(data, name=name)
+    return pt
 
 
 def _join(l, r, lk, rk, how="inner", cond=None):
@@ -215,13 +230,10 @@ ORDERED = {
 
 
 def _route(s):
-    """The route of the session's last equi-join; the reference's
-    variants of the perfect route ("spread", "perfect(recycled)") read
-    as "perfect"."""
-    route = s._executor._join_route
-    if route is None:
-        return None
-    return "perfect" if route.startswith(("perfect", "spread")) else route
+    """The route label of the session's last equi-join, exactly: the
+    perfect route's variants ("spread", "perfect(recycled)",
+    "perfect(spread-demoted:f64)") included."""
+    return s._executor._join_route
 
 
 def _run_both(sessions, make):
@@ -245,18 +257,46 @@ def test_join_ordered(sessions, name):
     assert_same(want, got)
 
 
-def test_routes_taken(sessions):
-    """The route each kind of build takes, in the port (the cases above
-    hold the reference to the same)."""
-    _, pt = sessions
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(ORDERED))
+def test_demand_safety_sweep(sessions, spread_port, name):
+    """Every query again in the port with the spread route admitted at any
+    size: none pulls a column outside a spread output's demand set (those
+    raise), and each equals the reference at its default settings.  The
+    routes may differ: the perfect table's range guard also reads
+    ``spread_join_min_rows``."""
+    make = CASES.get(name) or ORDERED[name]
+    want = make(sessions[0])
+    got = make(spread_port)
+    assert_same(want, got, ordered=name in ORDERED)
+
+
+def test_demand_safety_sweep_took_the_spread_route(sessions, spread_port):
+    """The sweep reaches the spread route: an FK join whose consumer reads
+    build columns only takes it at any size."""
+    got = _sql("SELECT g, COUNT(*) AS c, SUM(w) AS s FROM cp_l JOIN cp_r "
+               "ON cp_l.k = cp_r.k GROUP BY g ORDER BY g")
+    want = got(sessions[0])
+    res = got(spread_port)
+    assert spread_port._executor._join_route == "spread"
+    assert_same(want, res)
+
+
+def test_routes_taken():
+    """The route each kind of build takes on its first run, in a fresh
+    port session (the cases above hold the reference to the same); a
+    filtered build side is recycled from its second run on."""
+    pt = hdk_tpu_torch.HDK(device="cpu")
+    for name, data in _tables().items():
+        pt.import_pydict(data, name=name)
     for name, route in (("inner_unique_build", "perfect"),
                         ("inner_one_to_many", "hash"),
                         ("multikey", "hash"),
                         ("string_key", "perfect"),
                         ("mixed_numeric_keys", "hash"),
-                        ("filtered_inner", "perfect")):
+                        ("filtered_inner", "perfect"),
+                        ("filtered_inner", "perfect(recycled)")):
         pt._executor._join_route = None
-        CASES[name](pt)
+        CASES[name](pt).to_arrow()
         assert pt._executor._join_route == route, name
 
 

@@ -173,11 +173,13 @@ def test_build_perfect(unique, masked):
     # a range that cuts off the top keys: out-of-range rows drop out
     lo, size = 1000, 350
     tab_j, uq_j, ns_j = jj.build_perfect(jc, min_key=lo, range_size=size)
-    tab_t, uq_t, ns_t = tj.build_perfect(tc, min_key=lo, range_size=size)
+    tab_t, uq_t, ns_t, slots_t = tj.build_perfect(tc, min_key=lo,
+                                                  range_size=size)
     assert bool(uq_j) == bool(uq_t)
     assert int(ns_j) == int(ns_t)
     assert np.array_equal(_np(jj.build_slots(jc, lo, size)),
                           _np(tj.build_slots(tc, lo, size)))
+    assert np.array_equal(_np(slots_t), _np(tj.build_slots(tc, lo, size)))
     occupied_j, occupied_t = _np(tab_j.rows) >= 0, _np(tab_t.rows) >= 0
     assert np.array_equal(occupied_j, occupied_t)
     if unique:
@@ -195,9 +197,11 @@ def test_build_perfect(unique, masked):
     st, it = tj.perfect_slots(pt, lo, size)
     assert np.array_equal(_np(sj), _np(st))
     assert np.array_equal(_np(ij), _np(it))
-    if unique:
+    if unique:  # the build row of each probe row, read from the table
+        st, mt = tj.perfect_match(tab_t, pt, range_size=size, complete=False)
+        rows_t = torch.where(mt, tab_t.rows[st], -1)
         assert np.array_equal(_np(jj.probe_perfect(tab_j, pj, size)),
-                              _np(tj.probe_perfect(tab_t, pt, size)))
+                              _np(rows_t))
 
 
 # the executor's build-table caches (the cases of

@@ -210,12 +210,44 @@ def test_query(sessions, name):
     assert_same(want, got, ordered=name in ORDERED)
 
 
-def test_filtered_build_takes_the_perfect_route(sessions):
+@pytest.fixture(scope="module")
+def spread_port():
+    """The port over the same tables with the spread route admitted at
+    any probe size (``spread_join_min_rows`` 1)."""
+    import hdk_tpu_torch
+
+    pt = hdk_tpu_torch.HDK(device="cpu",
+                           **{"exec.join.spread_join_min_rows": 1})
+    for name, data in _tables().items():
+        pt.import_pydict(data, name=name)
+    return pt
+
+
+@pytest.mark.parametrize("name", sorted(QUERIES) + sorted(ORDERED))
+def test_demand_safety_sweep(sessions, spread_port, name):
+    """Every query again in the port with the spread route admitted at any
+    size: none pulls a column outside a spread output's demand set (those
+    raise), and each equals the reference at its default settings (the
+    routes may differ: the perfect table's range guard also reads
+    ``spread_join_min_rows``)."""
+    sql = QUERIES.get(name) or ORDERED[name]
+    assert_same(sessions[0].sql(sql), spread_port.sql(sql),
+                ordered=name in ORDERED)
+
+
+def test_filtered_build_takes_the_perfect_route():
     """A filtered build whose base-table range fails the density guard
-    falls back to a device min/max and takes the perfect route."""
-    _, pt = sessions
-    pt.sql(QUERIES["filtered_build_static_range_falls_back_to_probe"])
-    assert pt._executor._join_route == "perfect"
+    falls back to a device min/max and takes the perfect route (in a
+    fresh session: from the second run on the filtered build side is
+    recycled)."""
+    import hdk_tpu_torch
+
+    pt = hdk_tpu_torch.HDK(device="cpu")
+    for name, data in _tables().items():
+        pt.import_pydict(data, name=name)
+    for route in ("perfect", "perfect(recycled)"):
+        pt.sql(QUERIES["filtered_build_static_range_falls_back_to_probe"])
+        assert pt._executor._join_route == route
 
 
 def test_correlated_non_equality_raises(sessions):
