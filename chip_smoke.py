@@ -59,18 +59,34 @@ Phases, each printed as it runs:
      a chunk; a 1 ms limit must raise), EXPLAIN ANALYZE of the streamed
      Q1, fragment skipping over 100M taxi rows in pickup order (one month
      of 4 years), and the measured choice between the dense and the sort
-     route of a 1000-group GROUP BY; each against numpy.
+     route of a 1000-group GROUP BY; each against numpy;
+ 10. the rest of the facade, in a session of its own: S1 a stream
+     (``create_stream``) of 100M taxi rows pushed in 10 batches, which
+     must leave at most one batch's bytes on the device; U1 a UDF with
+     a torch body in taxi Q2's GROUP BY through ``hdk.call`` and SQL,
+     against the same expression in builtins, then registered again
+     with another body (a new step, the new result); V1 the taxi rows
+     under a 10M-row fragment size; P1 a 1.6 GB projection offloaded to
+     host memory (device memory must fall by its bytes), read back and
+     scanned, four such results under a budget that holds two (the two
+     oldest spill) and ``clear_device_mem``; I1 SQLite answering a
+     recursive CTE and SUBSTR over 100k rows; and ``import_arrow`` then
+     taxi Q2 with the device prefetch on and off (where pyarrow is
+     installed); each against numpy.
 Phases 5-6 are the sort route, phase 7 the join path, phase 8 the
-window path and phase 9 the controls: each phase's kernel launches count
-apart from the others', every kernel must launch on phases 4 and 5-6,
-the kernels of TPC-H Q3 on phase 7, W3's (K1 and K4) on phase 8 and the
-streamed Q1's (K1, K3 and K4) on phase 9.  The line
+window path, phase 9 the controls and phase 10 the facade: each phase's
+kernel launches count apart from the others', every kernel must launch
+on phases 4 and 5-6, the kernels of TPC-H Q3 on phase 7, W3's (K1 and
+K4) on phase 8, the streamed Q1's (K1, K3 and K4) on phase 9, and S1's
+(K1, K3 and K4) and U1's (K1 and K4) on phase 10.  Each phase ends with
+the device cache's evictions and resident bytes.  The line
 before the last is a JSON object with the per-kernel results (every
 phase-3 case under ``cases``); the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
 non-zero and prints no result.  Needs numpy and torch; imports neither
-jax, pandas nor pyarrow (but for phase 7's string column, which goes
-through pyarrow where it is installed).
+jax, pandas nor pyarrow (but for the string columns of phases 7 and 10
+and phase 10's Arrow import, which go through pyarrow where it is
+installed).
 """
 
 from __future__ import annotations
@@ -951,6 +967,7 @@ def holistic_phase(hdk_mod, hdk, card, hist, rows=HOLISTIC_ROWS,
                   f"retry session {name}")
     log(f"retry session: default_max_groups 2^20 < {len(q1['n'])} "
         f"groups, {attempts} attempts, same result")
+    small.drop_table("h")
     hdk.drop_table("h")
 
 
@@ -1090,11 +1107,8 @@ def join_query(run, card, label, rows, hist, executor, route=None, want=(),
 
 
 def drop_tables(hdk, *names):
-    """Drop tables and their columns' device copies (a dropped table's
-    copies stay in the device cache until its budget evicts them)."""
+    """Drop tables (and with them their columns' device copies)."""
     for name in names:
-        for col in hdk._schema.get(name).columns:
-            col.drop_device_cache()
         hdk.drop_table(name)
 
 
@@ -1542,6 +1556,21 @@ def h2d_rates():
     return rates
 
 
+def d2h_rates():
+    """(pinned, pageable) device-to-host bytes/s of a 1 GiB copy; the
+    pageable copy lands in fresh host memory, as ``Tensor.cpu()`` does."""
+    n = 1 << 30
+    dev = torch.ones(n, dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    pinned_s = cuda_ms(lambda: pinned.copy_(dev, non_blocking=True)) / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev.cpu()
+    pageable_s = time.perf_counter() - t0
+    del dev, pinned
+    return n / pinned_s, n / pageable_s
+
+
 def streamed_query(hdk, sql, label, rows, row_bytes, card, hist, want,
                    bound_bps):
     """``timed_query`` of a query that must stream (every run in two or
@@ -1706,6 +1735,426 @@ def controls_phase(hdk_mod, card, hist, device="cuda",
         f"data generation and the numpy oracles")
 
 
+# -- phase 10: the rest of the facade ------------------------------------
+
+STREAM_BATCHES = 10
+INTEROP_ROWS = 100_000
+STREAM_SCHEMA = {"cab_type": "int8", "passenger_count": "int8",
+                 "total_amount": "fp32", "trip_distance": "fp32"}
+STREAM_AGGS = ["count", "sum(cab_type)", "sum(total_amount)",
+               "avg(total_amount)", "min(trip_distance)",
+               "max(trip_distance)", "stddev(total_amount)"]
+# S1 must launch K1 (the float sums), K3 (the int8 sum) and K4; U1 K1 and K4
+FACADE_STREAM_KERNELS = ("groupby_sums", "seg_sums_exact", "count_hist")
+FACADE_UDF_KERNELS = ("groupby_sums", "count_hist")
+U32 = 2.0 ** -24  # float32's unit roundoff
+IO_RECURSIVE_Q = ("WITH RECURSIVE cnt(x) AS (SELECT 0 UNION ALL SELECT x + 1 "
+                  "FROM cnt WHERE x < 999) SELECT io.k, io.v FROM io "
+                  "JOIN cnt ON io.k = cnt.x * 100 ORDER BY io.k")
+IO_SUBSTR_Q = "SELECT k, SUBSTR(s, 2, 3) AS sub FROM io ORDER BY k"
+
+
+def device_bytes() -> int:
+    """Bytes of live tensors on the card, after the collector has run."""
+    import gc
+
+    gc.collect()
+    return torch.cuda.memory_allocated() if torch.cuda.is_available() else 0
+
+
+def log_device_cache(phase: str) -> None:
+    """The device cache manager's evictions so far and its resident bytes
+    (table columns and results) at the end of a phase."""
+    from hdk_tpu_torch.storage.memory import device_cache_manager
+
+    mgr = device_cache_manager()
+    log(f"{phase} done: device cache evictions={mgr.evictions} "
+        f"resident_bytes={mgr.resident_bytes} budget={mgr.budget}; "
+        f"device bytes allocated={device_bytes()}")
+
+
+def launches_since(hist, before):
+    now = hist.launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def stream_check(out, data, batches, what):
+    """S1 against numpy: counts and the int8 sum exactly; float32 sums and
+    averages to rtol 1e-6; MIN/MAX exactly; STDDEV against a two-pass
+    oracle within its formula's bound: each push rounds the float32 sums
+    (s, the sum of squares q) once more, and x*x rounds once, so q and s
+    carry up to (batches + 1) float32 roundings, and (q - s^2/n)/(n - 1)
+    up to (batches + 1) * u32 * (q + 2 s^2/n) / (n - 1) of variance."""
+    pc = data["passenger_count"].astype(np.int64)
+    keys = np.flatnonzero(np.bincount(pc, minlength=9))
+    order = np.argsort(out["passenger_count"])
+    equal(out["passenger_count"][order], keys, f"{what} keys")
+    cnt = np.bincount(pc, minlength=9)[keys]
+    equal(out["count"][order], cnt, f"{what} count")
+    equal(out["cab_type_sum"][order],
+          np.bincount(pc, weights=data["cab_type"], minlength=9)[keys]
+          .astype(np.int64), f"{what} sum(cab_type)")
+    x = data["total_amount"].astype(np.float64)
+    s = np.bincount(pc, weights=x, minlength=9)[keys]
+    close(out["total_amount_sum"][order], s, 1e-6, f"{what} sum")
+    close(out["total_amount_avg"][order], s / cnt, 1e-6, f"{what} avg")
+    td = data["trip_distance"]
+    lo = np.full(9, np.inf, np.float32)
+    hi = np.full(9, -np.inf, np.float32)
+    np.minimum.at(lo, pc, td)
+    np.maximum.at(hi, pc, td)
+    equal(out["trip_distance_min"][order], lo[keys], f"{what} min")
+    equal(out["trip_distance_max"][order], hi[keys], f"{what} max")
+    mean = s / cnt
+    mean9 = np.zeros(9)
+    mean9[keys] = mean
+    dev2 = np.bincount(pc, weights=(x - mean9[pc]) ** 2, minlength=9)[keys]
+    q = np.bincount(pc, weights=x * x, minlength=9)[keys]
+    sd = np.sqrt(dev2 / (cnt - 1))
+    var_err = ((batches + 1) * U32 * (q + 2 * cnt * mean * mean)
+               + 8 * np.finfo(np.float64).eps * q) / (cnt - 1)
+    got = np.asarray(out["total_amount_stddev"][order], np.float64)
+    err = np.abs(got - sd)
+    bound = 1e-9 * sd + var_err / (2 * sd)
+    check(np.all(err <= bound),
+          f"{what} stddev: error {err.max()!r} above the bound "
+          f"{bound[np.argmax(err)]!r}")
+
+
+def stream_s1(hdk, data, card, hist, batches, want):
+    """S1: the taxi rows pushed in ``batches`` equal batches through
+    ``create_stream``; each push imports its batch, aggregates it and
+    merges the partials.  Returns the launches of the stream."""
+    rows = len(data["passenger_count"])
+    n = rows // batches
+    batch_bytes = n * sum(data[c].itemsize for c in STREAM_SCHEMA)
+    mem0 = device_bytes()
+    before = hist.launches()
+    t_all = time.perf_counter()
+    st = hdk.create_stream(STREAM_SCHEMA, ["passenger_count"], STREAM_AGGS)
+    push_ms = []
+    for b in range(batches):
+        t0 = time.perf_counter()
+        st.push({c: data[c][b * n:(b + 1) * n] for c in STREAM_SCHEMA})
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+    res = st.finish()
+    out = res.to_numpy()
+    total = time.perf_counter() - t_all
+    used = launches_since(hist, before)
+    for k in want:
+        check(used[k] > 0, f"S1 stream: kernel {k} never launched ({used})")
+    stream_check(out, {c: v[:n * batches] for c, v in data.items()},
+                 batches, "S1 stream")
+    del res
+    mem1 = device_bytes()
+    check(mem1 - mem0 <= batch_bytes,
+          f"S1 stream: {mem1 - mem0} bytes left on the device after "
+          f"finish(), more than one batch ({batch_bytes})")
+    log(f"S1 stream: {batches} pushes of {n} rows, push_ms={push_ms!r}, "
+        f"total_s={total!r}, rows_per_s={n * batches / total!r}, "
+        f"device bytes after finish minus before={mem1 - mem0} "
+        f"(one batch {batch_bytes}), launches={used} [{card}]")
+    return used
+
+
+def udf_u1(hdk_mod, hdk, ht, data, card, hist, want):
+    """U1: a torch-body UDF in taxi Q2's GROUP BY, through the builder
+    with ``hdk.call`` and in SQL, against numpy and against the same
+    expression written with builtins; then the name registered again
+    with another body."""
+    t = hdk_mod.types
+
+    def register(floor):
+        hdk.register_udf(
+            "fare_per_mile",
+            lambda a, b: a.to(torch.float64)
+            / torch.clamp(b.to(torch.float64), min=floor),
+            arg_types=[t.fp64(), t.fp64()], ret_type=t.fp64())
+
+    pc = data["passenger_count"].astype(np.int64)
+    cnt = np.bincount(pc, minlength=9)
+    ta = data["total_amount"].astype(np.float64)
+    td = data["trip_distance"].astype(np.float64)
+
+    def oracle(floor):
+        return np.bincount(pc, weights=ta / np.maximum(td, floor),
+                           minlength=9) / cnt
+
+    def builder():
+        fpm = hdk.call("fare_per_mile", ht["total_amount"],
+                       ht["trip_distance"])
+        return ht.agg("passenger_count", fpm.avg().name("fpm")).run()
+
+    sql = ("SELECT passenger_count, AVG(fare_per_mile(total_amount, "
+           "trip_distance)) AS fpm FROM trips GROUP BY passenger_count "
+           "ORDER BY passenger_count")
+    plain = ("SELECT passenger_count, AVG(total_amount / CASE WHEN "
+             "trip_distance > 0.1 THEN trip_distance * 1.0 ELSE 0.1 END) "
+             "AS fpm FROM trips GROUP BY passenger_count "
+             "ORDER BY passenger_count")
+    rows = len(pc)
+    register(0.1)
+    q2 = {}
+    timed_query(lambda: ht.agg("passenger_count", "avg(total_amount)").run(),
+                card, "U1 beside: taxi_q2", rows, hist, want, q2)
+    reports = {}
+    for label, run in (("builder", builder), ("sql", lambda: hdk.sql(sql)),
+                       ("builtins", lambda: hdk.sql(plain))):
+        reports[label] = {}
+        res = timed_query(run, card, f"U1 {label}", rows, hist,
+                          want if label != "builtins" else (),
+                          reports[label])
+        out = res.to_numpy()
+        order = np.argsort(out["passenger_count"])
+        equal(out["passenger_count"][order], np.arange(9), f"U1 {label} keys")
+        close(out["fpm"][order], oracle(0.1), 1e-9, f"U1 {label}")
+        reports[label]["out"] = np.asarray(out["fpm"])[order]
+    close(reports["builder"]["out"], reports["builtins"]["out"], 1e-9,
+          "U1 UDF against builtins")
+    close(reports["sql"]["out"], reports["builtins"]["out"], 1e-9,
+          "U1 SQL UDF against builtins")
+    builds = hdk._executor.code_cache.misses
+    register(1.0)
+    out = hdk.sql(sql).to_numpy()
+    new_builds = hdk._executor.code_cache.misses - builds
+    check(new_builds >= 1, "U1: re-registering built no new step")
+    order = np.argsort(out["passenger_count"])
+    close(out["fpm"][order], oracle(1.0), 1e-9, "U1 after re-registering")
+    log(f"U1 UDF: cold_ms builder/sql/builtins/taxi_q2 = "
+        f"{[reports[k]['cold_s'] * 1e3 for k in reports] + [q2['cold_s'] * 1e3]!r}, "
+        f"warm_ms = "
+        f"{[reports[k]['warm_s'] * 1e3 for k in reports] + [q2['warm_s'] * 1e3]!r}; "
+        f"re-registered: the new body's result, {new_builds} new step(s) "
+        f"[{card}]")
+
+
+def spill_p1(hdk, ht, data, card, mgr, h2d):
+    """P1: a two-column projection of the taxi rows offloaded to host
+    memory and read back; four such results under a budget that holds
+    two; ``clear_device_mem``.  The device-memory checks need a card (a
+    CPU session has no device bytes to count)."""
+    on_card = hdk.device.type == "cuda"
+    td = data["trip_distance"]
+    ta = data["total_amount"]
+
+    def project(i):
+        return ht.proj(d=ht["trip_distance"].cast("fp64") + i,
+                       a=ht["total_amount"] * 2).run().block()
+
+    def read_back(res, i, what):
+        out = res.to_numpy()
+        equal(out["d"], td.astype(np.float64) + i, f"{what} d")
+        equal(out["a"], ta * np.float32(2), f"{what} a")
+
+    d2h = d2h_rates() if on_card else (float("inf"), float("inf"))
+    res = project(1)
+    nbytes = res._nbytes()
+    mem0 = device_bytes()
+    t0 = time.perf_counter()
+    res.offload()
+    secs = time.perf_counter() - t0
+    mem1 = device_bytes()
+    check(not on_card or mem0 - mem1 >= nbytes,
+          f"P1 offload: device bytes fell by {mem0 - mem1}, less than the "
+          f"result's {nbytes}")
+    t0 = time.perf_counter()
+    res._ensure_device()
+    if on_card:
+        torch.cuda.synchronize()
+    back = time.perf_counter() - t0
+    log(f"P1 offload: {nbytes} bytes in {secs!r} s = "
+        f"{nbytes / secs / 1e9!r} GB/s device to host (1 GiB copies: "
+        f"pinned {d2h[0] / 1e9!r} GB/s, pageable {d2h[1] / 1e9!r} GB/s); "
+        f"reload {back!r} s = {nbytes / back / 1e9!r} GB/s host to device "
+        f"(pinned 1 GiB copy {h2d / 1e9!r} GB/s); device bytes {mem0} -> "
+        f"{mem1} [{card}]")
+    res.offload()
+    t0 = time.perf_counter()
+    read_back(res, 1, "P1 read back")
+    log(f"P1 read back and compared in {time.perf_counter() - t0!r} s")
+    res.offload()
+    s = res.scan
+    out = s.agg([], s["a"].sum().name("sa"), s["d"].max().name("md"),
+                "count").run().to_numpy()
+    close(out["sa"], [ta.astype(np.float64).sum() * 2], 1e-6,
+          "P1 scan sum(a)")
+    equal(out["md"], [np.float64(td.max()) + 1], "P1 scan max(d)")
+    equal(out["count"], [len(td)], "P1 scan count")
+    hdk.drop_table(res._registered.name)
+    del res, s
+
+    # LRU: room for the projection's two columns and two and a half
+    # results; each projection touches its columns, so the results are
+    # the least recently used entries
+    hdk.clear_device_mem()
+    old_budget = mgr.budget
+    evictions0 = mgr.evictions
+    mgr.set_budget(mgr.resident_bytes + td.nbytes + ta.nbytes
+                   + 2 * nbytes + nbytes // 2)
+    try:
+        results = [project(i) for i in range(4)]
+        evicted = mgr.evictions - evictions0
+        spilled = [r._table is None for r in results]
+        check(evicted >= 2, f"P1 LRU: {evicted} evictions, want 2 or more")
+        check(spilled[:2] == [True, True] and not any(spilled[2:]),
+              f"P1 LRU: spilled {spilled}, want the two oldest")
+        for i, r in enumerate(results):
+            read_back(r, i, f"P1 LRU result {i}")
+        log(f"P1 LRU: budget {mgr.budget}, 4 results of {nbytes} bytes, "
+            f"{evicted} evictions, spilled {spilled}, all read back equal "
+            f"[{card}]")
+        del results, r
+    finally:
+        mgr.set_budget(old_budget)
+
+    # clear_device_mem: the table's columns leave the device
+    q2 = lambda: ht.agg("passenger_count", "avg(total_amount)").run()
+    want = q2().to_numpy()
+    cols = hdk._schema.get("trips").columns
+    col_bytes = sum(x.nbytes for c in cols for pair in c._device.values()
+                    for x in pair if x is not None)
+    mem0 = device_bytes()
+    hdk.clear_device_mem()
+    mem1 = device_bytes()
+    check(not on_card or mem0 - mem1 >= col_bytes,
+          f"clear_device_mem: device bytes fell by {mem0 - mem1}, less "
+          f"than the columns' {col_bytes}")
+    got = q2().to_numpy()
+    equal(got["passenger_count"], want["passenger_count"],
+          "clear_device_mem keys")
+    close(got["total_amount_avg"], want["total_amount_avg"], 1e-9,
+          "clear_device_mem taxi_q2")
+    log(f"clear_device_mem: {col_bytes} column bytes dropped, device bytes "
+        f"{mem0} -> {mem1}; taxi Q2 again equal [{card}]")
+
+
+def interop_i1(hdk_mod, device, card, rows):
+    """I1: SQL the engine refuses, answered by SQLite over a table of
+    ``rows`` rows: a recursive CTE joined to it, and SUBSTR."""
+    hdk = hdk_mod.HDK(device=device, **{"exec.enable_interop": True})
+    k = np.arange(rows, dtype=np.int64)
+    v = np.random.default_rng(37).normal(size=rows)
+    s = np.asarray([f"s{i % 997:04d}" for i in range(rows)], dtype=object)
+    hdk.import_pydict({"k": k, "v": v, "s": s}, name="io")
+    t0 = time.perf_counter()
+    out = hdk.sql(IO_RECURSIVE_Q).to_numpy()
+    t_cte = time.perf_counter() - t0
+    sel = (k % 100 == 0) & (k <= 99_900)
+    equal(out["k"], k[sel], "I1 recursive CTE k")
+    equal(out["v"], v[sel], "I1 recursive CTE v")
+    t0 = time.perf_counter()
+    out = hdk.sql(IO_SUBSTR_Q).to_numpy()
+    t_sub = time.perf_counter() - t0
+    equal(out["k"], k, "I1 SUBSTR k")
+    equal(np.asarray(out["sub"], dtype=object),
+          np.asarray([x[1:4] for x in s], dtype=object), "I1 SUBSTR")
+    log(f"I1 interop over {rows} rows: recursive CTE join {t_cte!r} s, "
+        f"SUBSTR {t_sub!r} s (SQLite on the host; no speed claimed) "
+        f"[{card}]")
+    hdk.drop_table("io")
+
+
+def ingest_overlap(hdk_mod, device, data, card):
+    """``import_arrow`` of the taxi rows, then taxi Q2, with the device
+    prefetch on and off, each in a fresh session, in the order on, off,
+    off, on; the results must be equal.  Skipped (and said so) where
+    pyarrow is not installed."""
+    try:
+        import pyarrow as pa
+    except ImportError:
+        log("ingest overlap: pyarrow is not installed here, not measured")
+        return
+    import gc
+
+    from hdk_tpu_torch.storage.table import _ingest_pool
+
+    at = pa.table(dict(data))
+    outs = []
+    for prefetch in (True, False, False, True):
+        # each run starts with the ingest worker idle (an earlier
+        # session's stats may still be computing) and no garbage left
+        _ingest_pool().submit(lambda: None).result()
+        gc.collect()
+        hdk = hdk_mod.HDK(device=device,
+                          **{"storage.prefetch_device": prefetch})
+        t0 = time.perf_counter()
+        ht = hdk.import_arrow(at, name="trips_arrow")
+        t_import = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = ht.agg("passenger_count", "avg(total_amount)").run() \
+            .block().to_numpy()
+        t_query = time.perf_counter() - t0
+        outs.append(out)
+        log(f"ingest overlap: prefetch={prefetch} import_s={t_import!r} "
+            f"first_query_s={t_query!r} sum_s={t_import + t_query!r} "
+            f"[{card}]")
+        hdk.drop_table("trips_arrow")
+        del hdk, ht
+    for out in outs[1:]:
+        equal(out["passenger_count"], outs[0]["passenger_count"],
+              "ingest overlap keys")
+        close(out["total_amount_avg"], outs[0]["total_amount_avg"], 1e-9,
+              "ingest overlap taxi_q2")
+
+
+def facade_phase(hdk_mod, card, hist, device="cuda", taxi_rows=TAXI_ROWS,
+                 batches=STREAM_BATCHES, interop_rows=INTEROP_ROWS,
+                 want_stream=FACADE_STREAM_KERNELS,
+                 want_udf=FACADE_UDF_KERNELS):
+    """Phase 10 in a session of its own: S1 a stream of the taxi rows in
+    ``batches`` pushes, U1 a torch-body UDF in taxi Q2's GROUP BY, V1 a
+    refragmented view, P1 spill to host memory, I1 SQLite interop, and
+    the ingest prefetch on and off; each against numpy."""
+    from hdk_tpu_torch.storage.memory import device_cache_manager
+
+    t_phase = time.perf_counter()
+    pandas_before = "pandas" in sys.modules
+    mgr = device_cache_manager()
+    h2d = h2d_rates()[0] if device == "cuda" else float("inf")
+    t0 = time.perf_counter()
+    data = gen_taxi(taxi_rows)
+    log(f"facade phase: taxi {taxi_rows} rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    hdk = hdk_mod.HDK(device=device)
+
+    used = stream_s1(hdk, data, card, hist, batches, want_stream)
+    left = [n for n in hdk.table_names() if n.startswith("__stream_")]
+    check(not left, f"S1 left its batch tables {left}")
+
+    t = hdk_mod.types
+    ht = hdk.import_pydict(
+        dict(data), name="trips",
+        schema={"pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)})
+    udf_u1(hdk_mod, hdk, ht, data, card, hist, want_udf)
+
+    # V1: the same rows under a 10M-row fragment size
+    view = hdk.refragmented_view("trips", "trips_10m", 10_000_000)
+    a = ht.agg("passenger_count", "avg(total_amount)").run().to_numpy()
+    b = view.agg("passenger_count", "avg(total_amount)").run().to_numpy()
+    equal(b["passenger_count"], a["passenger_count"], "V1 keys")
+    close(b["total_amount_avg"], a["total_amount_avg"], 1e-9, "V1 taxi_q2")
+    log(f"V1 view: {len(hdk._schema.get('trips_10m').fragments)} fragments, "
+        f"taxi Q2 equal to the table's [{card}]")
+    hdk.drop_table("trips_10m")
+
+    spill_p1(hdk, ht, data, card, mgr, h2d)
+    hdk.drop_table("trips")
+    del ht, view
+    # the stream, the UDF, the view and the spill load no pandas; I1's
+    # text column and the Arrow import go through pyarrow, which loads
+    # pandas where it is installed
+    check(pandas_before or "pandas" not in sys.modules,
+          "the facade phase imported pandas")
+    interop_i1(hdk_mod, device, card, interop_rows)
+    ingest_overlap(hdk_mod, device, data, card)
+    check("jax" not in sys.modules, "jax was imported")
+    log(f"facade phase: {time.perf_counter() - t_phase:.1f} s including "
+        f"data generation and the numpy oracles")
+    return used
+
+
 # slots of each kernel's headline case in the kernels line
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
@@ -1778,6 +2227,7 @@ def main() -> None:
     launches = hist.launches()
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the main path")
+    log_device_cache("phase 4")
 
     # phases 5-6: the sort route, its launches counted apart
     torch.cuda.empty_cache()
@@ -1793,16 +2243,13 @@ def main() -> None:
     check("jax" not in sys.modules, "jax was imported")
     check("pandas" not in sys.modules, "pandas was imported")
 
+    log_device_cache("phases 5-6")
+
     # phase 7: joins in a session of their own, launches counted apart
     # (TPC-H Q3's string column goes through pyarrow where it is
-    # installed, which may load pandas).  The earlier phases' tables are
-    # dropped, but their columns' device copies stay in the device cache
-    # until its budget evicts them: a zero budget evicts them all, and
-    # the new session sets its own.
+    # installed, which may load pandas).  The earlier phases dropped
+    # their tables, and with them their columns' device copies.
     del hdk
-    from hdk_tpu_torch.storage.memory import device_cache_manager
-
-    device_cache_manager().set_budget(0)
     torch.cuda.empty_cache()
     hist.reset_launches()
     join_phase(hdk_tpu_torch, card, hist, want_q3=JOIN_KERNELS)
@@ -1812,6 +2259,7 @@ def main() -> None:
               f"kernel {name} never launched on the join path")
     log(f"join path: kernel launches {join_launches}")
     check("jax" not in sys.modules, "jax was imported")
+    log_device_cache("phase 7")
 
     # phase 8: window functions and array columns in a session of their
     # own, launches counted apart; W3 must launch K1 and K4
@@ -1824,10 +2272,10 @@ def main() -> None:
               f"kernel {name} never launched on the window path")
     log(f"window path: kernel launches {window_launches}")
     check("jax" not in sys.modules, "jax was imported")
+    log_device_cache("phase 8")
 
     # phase 9: executor controls in a session of their own, launches
     # counted apart; the streamed TPC-H Q1 must launch K1, K3 and K4
-    device_cache_manager().set_budget(0)
     torch.cuda.empty_cache()
     hist.reset_launches()
     controls_phase(hdk_tpu_torch, card, hist)
@@ -1837,6 +2285,17 @@ def main() -> None:
               f"kernel {name} never launched on the controls path")
     log(f"controls path: kernel launches {controls_launches}")
     check("jax" not in sys.modules, "jax was imported")
+    log_device_cache("phase 9")
+
+    # phase 10: the rest of the facade in a session of its own, launches
+    # counted apart; the stream must launch K1, K3 and K4, the UDF's
+    # GROUP BY K1 and K4 (checked inside)
+    torch.cuda.empty_cache()
+    hist.reset_launches()
+    facade_phase(hdk_tpu_torch, card, hist)
+    facade_launches = hist.launches()
+    log(f"facade path: kernel launches {facade_launches}")
+    log_device_cache("phase 10")
 
     kernels = []
     for name, rec in report.items():
@@ -1858,6 +2317,7 @@ def main() -> None:
             "join_path_launches": join_launches[name],
             "window_path_launches": window_launches[name],
             "controls_path_launches": controls_launches[name],
+            "facade_path_launches": facade_launches[name],
             "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it

@@ -27,7 +27,15 @@ stats rule out.  ``hdk.explain(q)`` (or ``EXPLAIN SELECT ...``) gives
 the plan text; ``hdk.explain(q, analyze=True)`` runs the query and adds
 each step's time and rows.
 
-Routes not ported yet (multi-device sessions, UDFs) raise
+The rest of the facade: scalar UDFs with torch bodies
+(``register_udf``, ``call``), streaming aggregation over pushed batches
+(``create_stream``), results that spill to host memory under the device
+budget (``QueryResult.offload``) and reload on use, SQLite as the
+fallback of SQL the engine refuses (``exec.enable_interop``), CSV and
+JSON ingest, and ``import_arrow``'s device prefetch, which copies each
+column while the next one decodes.
+
+Multi-device sessions are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -47,7 +55,7 @@ from .ir import node as _ir_node
 from .exec.common import ExecTable
 from .exec.executor import Executor
 from .exec import materialize as _mat
-from .storage.dictionary import DictionaryRegistry
+from .storage.dictionary import NULL_CODE, DictionaryRegistry
 from .storage import importers as _imp
 from .storage.schema import (
     DATA_SCHEMA_ID,
@@ -58,29 +66,145 @@ from .storage.schema import (
 __version__ = "0.1.0"
 
 
+class _ResultSpillHandle:
+    """A result's entry in the device cache manager: evicting it offloads
+    the result to host memory.  It holds the result weakly; a result that
+    is collected leaves the manager."""
+
+    def __init__(self, result: "QueryResult") -> None:
+        import weakref
+
+        from .storage.memory import device_cache_manager
+
+        self._ref = weakref.ref(result)
+        weakref.finalize(result, device_cache_manager().note_drop, self)
+
+    def drop_device_cache(self, _from_manager: bool = False) -> None:
+        r = self._ref()
+        if r is not None:
+            r.offload()
+
+
+def _table_bytes(t: ExecTable) -> int:
+    tensors = [x for c in t.columns for x in (c.data, c.mask)] + [t.row_mask]
+    return sum(x.nbytes for x in tensors if x is not None)
+
+
+def _host_copy(x: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    from .storage.table import to_host
+
+    return None if x is None else to_host(x)
+
+
 class QueryResult:
-    """Executed query result; also a queryable temp table (``res.scan``)."""
+    """Executed query result; also a queryable temp table (``res.scan``).
+
+    Its device tensors count against the device cache budget
+    (``storage/memory.py``): when the budget evicts it, or on
+    ``offload()``, they move to host memory and come back on the next
+    use.  A result whose columns are still lazy (a scan's columns, a
+    join's gathers) is counted once it materializes.  The eviction may
+    run on the ingest worker's thread, so a lock guards the swap; a
+    reader keeps the table it was handed, which stays valid after an
+    offload."""
 
     def __init__(self, session: "HDK", table: ExecTable) -> None:
         self._session = session
         self._table = table  # may carry a lazy row_mask; compacted on use
         self._registered = None
+        self._host_spill = None  # (fields, types, rows, columns, row mask)
+        self._lock = threading.RLock()
+        self._spill_handle = _ResultSpillHandle(self)
+        self._note_resident(table)
+
+    # -- spill to host under the device budget ------------------------------
+    # The lock guards the swap between the device table and the host copy;
+    # the manager is told outside it (its eviction takes other results'
+    # locks), so its entry may lag a concurrent offload or reload: it only
+    # decides what to evict next.
+    def _nbytes(self) -> int:
+        return _table_bytes(self._table)
+
+    def _note_resident(self, t: ExecTable) -> None:
+        from .storage.memory import device_cache_manager
+
+        if type(t.columns) is not list:
+            return  # lazy columns: sizing them would force them
+        device_cache_manager().note_use(self._spill_handle, _table_bytes(t))
+
+    def offload(self) -> "QueryResult":
+        """Copy this result's data, masks and row mask to host memory and
+        drop its device tensors; the next use copies them back."""
+        from .storage.memory import device_cache_manager
+
+        with self._lock:
+            t = self._table
+            if t is not None:
+                self._host_spill = (
+                    list(t.fields), list(t.types), t.nrows,
+                    [(_host_copy(c.data), _host_copy(c.mask))
+                     for c in t.columns],
+                    _host_copy(t.row_mask))
+                self._table = None
+        device_cache_manager().note_drop(self._spill_handle)
+        return self
+
+    def _ensure_device(self) -> ExecTable:
+        """The result's table on the session's device, copied back from
+        host memory if it was offloaded.  The caller uses the table
+        returned: the budget may offload the result again at once."""
+        from .exec.masked import MaskedCol
+        from .storage.table import to_device
+
+        with self._lock:
+            t = self._table
+            if t is not None:
+                return t
+            fields, types_, nrows, cols_h, rm_h = self._host_spill
+            dev = self._session.device
+
+            def back(x):
+                return None if x is None else to_device(x, dev)
+
+            t = ExecTable(fields, types_,
+                          [MaskedCol(back(d), back(m)) for d, m in cols_h],
+                          nrows, back(rm_h))
+            self._table = t
+            self._host_spill = None
+        self._note_resident(t)
+        return t
 
     def _dense(self) -> ExecTable:
-        if self._table.row_mask is not None:
-            self._table = self._table.compact()
-        return self._table
+        t = self._ensure_device()
+        if t.row_mask is None:
+            return t
+        t = t.compact()
+        with self._lock:
+            kept = self._table is not None  # else offloaded meanwhile
+            if kept:
+                self._table = t
+        if kept:
+            self._note_resident(t)
+        return t
 
     @property
     def row_count(self) -> int:
-        return self._table.live_count()
+        with self._lock:
+            if self._table is None:
+                rm = self._host_spill[4]
+                return self._host_spill[2] if rm is None else int(rm.sum())
+            return self._table.live_count()
 
     @property
     def schema(self):
-        return list(zip(self._table.fields, self._table.types))
+        with self._lock:
+            if self._table is None:
+                return list(zip(self._host_spill[0], self._host_spill[1]))
+            return list(zip(self._table.fields, self._table.types))
 
     def block(self) -> "QueryResult":
-        """Wait for the device work behind this result."""
+        """Wait for the device work behind this result (an offloaded
+        result has none left)."""
         if self._session.device.type == "cuda":
             torch.cuda.synchronize(self._session.device)
         return self
@@ -95,6 +219,15 @@ class QueryResult:
         """Column name -> numpy array (a masked array where the column has
         NULLs); needs neither pyarrow nor pandas."""
         return _mat.to_numpy(self._dense(), self._session._dicts)
+
+    def head(self, n: int = 10):
+        """The first ``n`` rows as an Arrow table."""
+        return self.to_arrow().slice(0, n)
+
+    def tail(self, n: int = 10):
+        """The last ``n`` rows as an Arrow table."""
+        arr = self.to_arrow()
+        return arr.slice(max(0, arr.num_rows - n), n)
 
     @property
     def scan(self) -> QueryNode:
@@ -148,8 +281,11 @@ class HDK:
 
         device_cache_manager().set_budget(
             self._config.storage.device_cache_budget_bytes)
+        from .udf import UdfRegistry
+
+        self._udfs = UdfRegistry()
         self._executor = Executor(self._schema, self._dicts, self._config,
-                                  self.device)
+                                  self.device, udfs=self._udfs)
         self._tmp_counter = 0
         self._lock = threading.Lock()
 
@@ -157,10 +293,46 @@ class HDK:
     def config(self) -> Config:
         return self._config
 
+    # -- UDFs ---------------------------------------------------------------
     def register_udf(self, name: str, fn, arg_types, ret_type,
                      null_propagation: bool = True):
-        raise NotImplementedError(
-            "UDFs with torch bodies are not ported yet (ROADMAP A6)")
+        """Register a scalar UDF with a torch body, callable from SQL and
+        from the builder (``call``); see udf.py for the contract.
+        Registering a name again replaces its body."""
+        return self._udfs.register(name, fn, arg_types, ret_type,
+                                   null_propagation=null_propagation)
+
+    def call(self, name: str, *args) -> QueryExpr:
+        """Builder-side call of a registered UDF or a scalar builtin;
+        Python numbers and bools become typed constants."""
+        from .ir.expr import Constant, Expr, FunctionCall
+
+        def as_expr(a):
+            if isinstance(a, QueryExpr):
+                return a.expr
+            if isinstance(a, Expr):
+                return a
+            if isinstance(a, bool):
+                return Constant(types.boolean(False), a)
+            if isinstance(a, int):
+                return Constant(types.int64(False), a)
+            if isinstance(a, float):
+                return Constant(types.fp64(False), a)
+            raise TypeError(f"cannot pass {type(a).__name__} to call(); "
+                            "wrap strings and dates with hdk.cst()")
+
+        exprs = [as_expr(a) for a in args]
+        udf = self._udfs.get(name)
+        if udf is not None:
+            nullable = any(e.type.nullable for e in exprs)
+            out_t = udf.ret_type.with_nullable(
+                udf.ret_type.nullable or (udf.null_propagation and nullable))
+            return QueryExpr(FunctionCall(out_t, name.lower(), exprs))
+        # a builtin is typed as the SQL binder types it
+        from .sql.binder import Binder
+
+        out_t = Binder(self)._fn_type(name.lower(), exprs)
+        return QueryExpr(FunctionCall(out_t, name.lower(), exprs))
 
     # -- ingest ------------------------------------------------------------
     def _table_name(self, name: Optional[str]) -> str:
@@ -206,9 +378,32 @@ class HDK:
 
     def import_arrow(self, at, name: Optional[str] = None,
                      schema=None) -> QueryNode:
+        """An Arrow table.  With ``storage.prefetch_device`` (None: on),
+        each column's copy to the device goes to the ingest worker as
+        soon as its host decode ends, so it overlaps the next column's
+        decode, and the fragment stats are computed in the background."""
+        from .storage.table import Column, ColumnInfo, Table
+
         name = self._table_name(name)
-        return self._register(
-            name, _imp.columns_from_arrow(at, self._dicts, schema))
+        pf = self._config.storage.prefetch_device
+        prefetch = pf is None or bool(pf)
+        tid = self._schema.next_table_id(DATA_SCHEMA_ID)
+        built = []
+
+        def pipeline(col):
+            cname, typ, data, validity = col
+            c = Column(ColumnInfo(tid, len(built), cname, typ), data,
+                       validity)
+            built.append(c)
+            if prefetch:
+                c.prefetch_device(self.device)
+
+        _imp.columns_from_arrow(at, self._dicts, schema, pipeline=pipeline)
+        table = Table(tid, name, built, self._config.storage.fragment_size)
+        if prefetch:
+            table.prefetch_stats_async()
+        self._schema.register(table)
+        return self.scan(name)
 
     def import_pandas(self, df, name: Optional[str] = None) -> QueryNode:
         import pyarrow as pa
@@ -221,8 +416,68 @@ class HDK:
 
         return self.import_arrow(pq.read_table(path), name)
 
+    def import_csv(self, path, name: Optional[str] = None,
+                   **read_options) -> QueryNode:
+        """One CSV file, or a list of them concatenated, through Arrow's
+        reader (``read_options`` go to ``pyarrow.csv.read_csv``)."""
+        import pyarrow.csv as pacsv
+
+        return self._import_files(pacsv.read_csv, path, name, read_options)
+
+    def import_json(self, path, name: Optional[str] = None,
+                    **read_options) -> QueryNode:
+        """Line-delimited JSON files through Arrow's reader."""
+        import pyarrow.json as pajson
+
+        return self._import_files(pajson.read_json, path, name,
+                                  read_options)
+
+    def _import_files(self, read, path, name, read_options) -> QueryNode:
+        import pyarrow as pa
+
+        paths = path if isinstance(path, (list, tuple)) else [path]
+        tables = [read(p, **read_options) for p in paths]
+        at = pa.concat_tables(tables) if len(tables) > 1 else tables[0]
+        return self.import_arrow(at, name)
+
+    def create_table(self, name: str, schema: Dict[str, object]) -> QueryNode:
+        """An empty table from {column: type string or Type}; a text
+        column gets a dictionary of its own."""
+        cols = []
+        for cname, typ in schema.items():
+            if isinstance(typ, str):
+                typ = types.parse_type(typ)
+            if typ.is_string():
+                typ = types.dict_text(self._dicts.create().dict_id)
+            cols.append((cname, typ, np.zeros(0, typ.physical_dtype()),
+                         None))
+        return self._register(name, cols)
+
+    def clear_device_mem(self) -> None:
+        """Drop the device copies of every table's columns; the next
+        query copies what it reads again."""
+        for tname in self._schema.table_names():
+            for col in self._schema.get(tname).columns:
+                col.drop_device_cache()
+
+    def refragmented_view(self, name: str, new_name: str,
+                          fragment_size: int) -> QueryNode:
+        """A table of the same columns (shared, not copied) under another
+        fragment size."""
+        from .storage.table import Table
+
+        src = self._schema.get(name)
+        tid = self._schema.next_table_id(DATA_SCHEMA_ID)
+        cols = [c for c in src.columns if not c.info.is_rowid]
+        self._schema.register(Table(tid, new_name, cols, fragment_size))
+        return self.scan(new_name)
+
     def drop_table(self, name: str) -> None:
+        """Unregister a table and drop its columns' device copies."""
+        table = self._schema.get(name)
         self._schema.drop(name)
+        for col in table.columns:
+            col.drop_device_cache()
 
     def append_pydict(self, name: str, data: Dict[str, Sequence]) -> None:
         """Append rows to a table, each column read as the table's type
@@ -261,6 +516,12 @@ class HDK:
         v = np.datetime64(value).astype(f"datetime64[{unit}]").astype(np.int64)
         return QueryExpr(_ir_expr.Constant(types.timestamp(tu, False), int(v)))
 
+    def time(self, value: str) -> QueryExpr:
+        """A TIME literal from "HH[:MM[:SS]]", in seconds."""
+        h, m, s = (list(map(int, value.split(":"))) + [0, 0])[:3]
+        return QueryExpr(_ir_expr.Constant(
+            types.time64(types.TimeUnit.SECOND, False), h * 3600 + m * 60 + s))
+
     if_then_else = staticmethod(if_then_else)
 
     # -- window functions: shells that ``over``/``order_by`` complete -------
@@ -289,17 +550,79 @@ class HDK:
         return self._window(_ir_expr.WindowKind.NTILE, types.int64(False),
                             arg1=tile_count)
 
+    # -- streaming ----------------------------------------------------------
+    def create_stream(self, schema: Dict[str, object], keys, aggs):
+        """Incremental GROUP BY over batches pushed one at a time
+        (streaming.py)."""
+        from .streaming import StreamingAggregation
+
+        return StreamingAggregation(self, schema, list(keys), list(aggs))
+
     # -- SQL ----------------------------------------------------------------
     def sql(self, query: str, **options) -> "QueryResult":
         """Execute a SQL query through the port's parser and binder.
-        ``EXPLAIN SELECT ...`` returns the plan text."""
+        ``EXPLAIN SELECT ...`` returns the plan text.  With
+        ``exec.enable_interop``, a query the engine refuses (a
+        ``SqlError`` or ``ExecError``) runs in SQLite instead."""
+        from .exec.scalar import ExecError
         from .sql.binder import Binder
+        from .sql.lexer import SqlError
 
         stripped = query.lstrip()
         if stripped[:8].lower() == "explain ":
             options = dict(options, just_explain=True)
             query = stripped[8:]
-        return self._run(Binder(self).bind(query), **options)
+        try:
+            return self._run(Binder(self).bind(query), **options)
+        except (SqlError, ExecError) as err:
+            if not self._config.exec.enable_interop:
+                raise
+            return self._sql_interop(query, err)
+
+    def _sql_interop(self, query: str, err: Exception) -> "QueryResult":
+        """Run ``query`` in an in-memory SQLite database over the
+        session's tables that it names (each exported through the
+        engine's own scan, dictionary strings decoded), and import the
+        answer as a result on the session's device.  Uses ``sqlite3``
+        and numpy only.  When SQLite fails too, the engine's error is
+        raised.  An escape hatch, not a fast path."""
+        import re
+        import sqlite3
+
+        from .exec.masked import MaskedCol
+        from .storage.table import to_device
+        from .utils.logger import get_channel
+
+        names = [n for n in self._schema.table_names()
+                 if re.search(rf"\b{re.escape(n)}\b", query, re.I)]
+        if not names:
+            raise err
+        conn = sqlite3.connect(":memory:")
+        try:
+            for n in names:
+                res = self.scan(n).run()
+                _sqlite_export(conn, n, res.schema, res.to_numpy())
+            cur = conn.execute(query)
+            out_names = [d[0] for d in cur.description]
+            rows = cur.fetchall()
+        except (sqlite3.Error, TypeError, ValueError):
+            raise err from None  # the engine's error, not SQLite's
+        finally:
+            conn.close()
+        typs, cols = [], []
+        for i, cname in enumerate(out_names):
+            typ, data, validity = _sqlite_column(
+                cname, [r[i] for r in rows], self._dicts)
+            typs.append(typ)
+            cols.append(MaskedCol(
+                to_device(data, self.device),
+                None if validity is None else to_device(validity,
+                                                        self.device)))
+        table = ExecTable(out_names, typs, cols, len(rows))
+        get_channel("sql").info(
+            "interop fallback ran %d-table query through SQLite "
+            "(engine said: %s)", len(names), str(err)[:120])
+        return QueryResult(self, table)
 
     # -- execution ----------------------------------------------------------
     def explain(self, node_or_sql, analyze: bool = False) -> str:
@@ -424,6 +747,66 @@ class HDK:
             sig, ["rewrite", "original"])
         chosen = rewritten if variant == "rewrite" else alt
         return chosen, ((sig, variant) if mode == "timed" else None)
+
+
+def _sqlite_export(conn, name: str, typed, cols: Dict[str, np.ndarray]
+                   ) -> None:
+    """Write a table into SQLite as pandas' ``to_sql`` writes a frame:
+    numbers as numbers (bools as 0/1), strings as text, dates and
+    timestamps as ISO text, NULL and NaN as NULL."""
+    def sql_values(typ, col):
+        data = np.ma.getdata(col)
+        valid = ~np.ma.getmaskarray(col)
+        if data.ndim != 1:
+            raise TypeError(f"column of type {typ} has no SQLite form")
+        if typ.is_date() or typ.is_datetime():
+            unit = "D" if typ.unit == types.TimeUnit.DAY else typ.unit.value
+            stamps = data.astype(f"datetime64[{unit}]").astype(
+                "datetime64[us]").astype(object)
+            vals = [str(v.date()) if typ.is_date() else str(v)
+                    for v in stamps]
+        else:
+            vals = data.tolist()
+            if data.dtype.kind == "f":
+                valid = valid & ~np.isnan(data)
+        return [v if ok else None for v, ok in zip(vals, valid.tolist())]
+
+    names = list(cols)
+    rows = list(zip(*[sql_values(typ, cols[n])
+                      for n, (_n, typ) in zip(names, typed)]))
+    quoted = ", ".join('"' + n.replace('"', '""') + '"' for n in names)
+    conn.execute(f'CREATE TABLE "{name}" ({quoted})')
+    conn.executemany(f'INSERT INTO "{name}" VALUES '
+                     f'({", ".join("?" * len(names))})', rows)
+
+
+def _sqlite_column(name: str, values: list, dicts):
+    """(type, data, validity or None) of a column SQLite returned, typed
+    as pandas' ``read_sql_query`` types it in the JAX package: integers
+    as int64, or float64 when a row is NULL or a float; text as a
+    dictionary column of its own.  A column with no value but NULLs, or
+    mixing text with numbers, has no type (the JAX package's importer
+    refuses it too)."""
+    present = [v for v in values if v is not None]
+    kinds = {type(v) for v in present}
+    if not present or not (kinds <= {int, float} or kinds == {str}):
+        raise TypeError(f"unsupported SQLite result type for column "
+                        f"{name!r}: {sorted(k.__name__ for k in kinds)}")
+    if kinds == {str}:
+        d = dicts.create()
+        codes = d.bulk_get_or_add(values)  # None -> NULL_CODE
+        validity = codes != NULL_CODE
+        if validity.all():
+            validity = None
+        return (types.dict_text(d.dict_id, nullable=validity is not None),
+                codes, validity)
+    validity = (None if len(present) == len(values)
+                else np.asarray([v is not None for v in values]))
+    if kinds == {int} and validity is None:
+        return types.int64(False), np.asarray(values, dtype=np.int64), None
+    data = np.asarray([np.nan if v is None else v for v in values],
+                      dtype=np.float64)
+    return types.fp64(validity is not None), data, validity
 
 
 _global: Optional[HDK] = None

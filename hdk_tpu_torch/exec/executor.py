@@ -62,12 +62,13 @@ class Executor(AggExecMixin, JoinExecMixin):
     """Per-session engine on one torch device."""
 
     def __init__(self, schema, dicts, config: Config,
-                 device: torch.device) -> None:
+                 device: torch.device, udfs=None) -> None:
         self.schema = schema
         self.dicts = dicts
         self.config = config
         self.device = device
-        self.scalar = ScalarCompiler(dicts, device)
+        self.udfs = udfs  # UdfRegistry (udf.py) or None
+        self.scalar = ScalarCompiler(dicts, device, udfs=udfs)
         self.code_cache = CodeCache()
         # probed perfect layouts keyed by plan, valid while the probed
         # input tensors are alive
@@ -332,12 +333,19 @@ class Executor(AggExecMixin, JoinExecMixin):
                              terminal: Optional[nd.Node]) -> str:
         """Dictionary sizes of the dictionaries a step reads: host-built
         code tables depend on them, so a grown dictionary keys a new
-        step."""
+        step.  A step that calls a UDF also keys on the registry's
+        generation, so re-registering a name builds a new step around the
+        new body; other steps keep theirs."""
         ids = set()
+        uses_udf = False
 
         def scan_expr(e: ir.Expr):
+            nonlocal uses_udf
             if e.type.is_dict_encoded_string():
                 ids.add(e.type.dict_id)  # type: ignore[attr-defined]
+            if (isinstance(e, ir.FunctionCall) and self.udfs is not None
+                    and self.udfs.get(e.name) is not None):
+                uses_udf = True
             for o in e.operands():
                 scan_expr(o)
 
@@ -352,8 +360,9 @@ class Executor(AggExecMixin, JoinExecMixin):
                 exprs = []
             for e in exprs:
                 scan_expr(e)
+        udf_sig = f"/u{self.udfs.generation}" if uses_udf else ""
         return ";".join(f"d{i}:{len(self.dicts.get(i))}"
-                        for i in sorted(ids))
+                        for i in sorted(ids)) + udf_sig
 
     def _used_columns(self, src_node: nd.Node, chain: List[nd.Node],
                       terminal_exprs: List[ir.Expr]) -> List[int]:

@@ -104,9 +104,12 @@ class JoinExecMixin:
     # -- build tables: identity cache, then the plan-keyed cache ----------
     def _data_epoch(self) -> str:
         """The session data a data-plan signature leaves out: dictionary
-        sizes (code translation and dictionary codes depend on them)."""
-        return ",".join(f"{i}:{len(d)}"
+        sizes (code translation and dictionary codes depend on them) and
+        the UDF registry's generation (a build subtree may call a UDF)."""
+        dsig = ",".join(f"{i}:{len(d)}"
                         for i, d in sorted(self.dicts._dicts.items()))
+        u = self.udfs.generation if self.udfs is not None else 0
+        return f"{dsig}|u{u}"
 
     def _join_build_plan_sig(self, node: nd.Join) -> Optional[str]:
         """Key of this join's build artifacts across runs: the data-plan

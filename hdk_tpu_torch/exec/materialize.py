@@ -14,7 +14,7 @@ import numpy as np
 
 from .. import types as t
 from ..storage.dictionary import NULL_CODE, DictionaryRegistry
-from ..storage.table import Column, ColumnInfo, Table
+from ..storage.table import Column, ColumnInfo, Table, to_host
 from .common import ExecTable
 from .masked import MaskedCol
 
@@ -25,9 +25,8 @@ except ImportError:  # pragma: no cover - optional outside the tests
 
 
 def _host(col: MaskedCol):
-    data = col.data.cpu().numpy()
-    mask = col.mask.cpu().numpy() if col.mask is not None else None
-    return data, mask
+    return to_host(col.data), (None if col.mask is None
+                               else to_host(col.mask))
 
 
 def _arrow_array(typ: t.Type, data: np.ndarray, mask: Optional[np.ndarray],

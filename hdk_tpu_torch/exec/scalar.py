@@ -169,9 +169,10 @@ def _like_to_regex(pattern: str, escape: Optional[str]) -> str:
 class ScalarCompiler:
     """Evaluates expression trees over resolved input columns."""
 
-    def __init__(self, dicts, device: torch.device) -> None:
+    def __init__(self, dicts, device: torch.device, udfs=None) -> None:
         self.dicts = dicts  # DictionaryRegistry, for string ops
         self.device = device
+        self.udfs = udfs  # UdfRegistry (udf.py) or None
 
     def _tensor(self, value, dtype: torch.dtype) -> torch.Tensor:
         return torch.tensor(value, dtype=dtype, device=self.device)
@@ -266,10 +267,18 @@ class ScalarCompiler:
 
     # ------------------------------------------------------------------
     def _function(self, e: ir.FunctionCall, ev) -> MaskedCol:
+        """A registered UDF (udf.py) first, then the builtins; any other
+        name raises ``ExecError``, as in the JAX package."""
         vals = [ev(a) for a in e.args]
         mask = combine_masks(*[v.mask for v in vals])
         xs = [v.data for v in vals]
         out_dt = _dtype(e.type)
+        udf = self.udfs.get(e.name) if self.udfs is not None else None
+        if udf is not None:
+            if udf.null_propagation:
+                return MaskedCol(udf.fn(*xs).to(out_dt), mask)
+            data, out_mask = udf.fn(*xs, mask)
+            return MaskedCol(data.to(out_dt), out_mask)
         if e.name == "cardinality" and e.args[0].type.is_array():
             return self._cardinality(vals[0])
         if e.name == "array_at" and e.args[0].type.is_array():
@@ -296,9 +305,7 @@ class ScalarCompiler:
                              mask)
         fn = _FUNCTIONS.get(e.name)
         if fn is None:
-            raise NotImplementedError(
-                f"function {e.name!r}: UDF calls and the remaining builtins "
-                "are not ported yet (ROADMAP A6)")
+            raise ExecError(f"unknown function {e.name!r}")
         return MaskedCol(fn(*xs).to(out_dt), mask)
 
     def _cardinality(self, a: MaskedCol) -> MaskedCol:

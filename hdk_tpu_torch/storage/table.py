@@ -4,7 +4,8 @@ Host tier: each column is a contiguous numpy array with an optional
 validity mask (True = valid), split into logical row fragments that carry
 min/max/null stats for layout choice.  Device tier: on first use a column
 becomes torch tensors on the session's device, cached per device under the
-shared ``storage/memory.py`` LRU budget.
+shared ``storage/memory.py`` LRU budget; ``import_arrow`` can have the
+ingest worker make that copy, and the fragment stats, in the background.
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ class FragmentStats:
     null_count: int
 
 
-# host-to-device copies of at least this many bytes go through a ring of
-# pinned blocks: a copy from pageable memory runs at a fraction of the
-# pinned rate (6.8 against 51.4 GB/s for 1 GiB on one H100's host)
+# copies of at least this many bytes between the host and a CUDA device,
+# either way, go through a ring of pinned blocks: a copy from or to
+# pageable memory runs at a fraction of the pinned rate (host to device
+# 6.8 against 51.4 GB/s for 1 GiB on one H100's host)
 STAGE_MIN_BYTES = 1 << 24
 _STAGE_BLOCK = 1 << 25
 _STAGE_SLOTS = 4
@@ -65,6 +67,57 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return _staged_copy(host, device)
 
 
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """A host copy of a tensor as a numpy array (a CPU tensor's own
+    memory, not a copy).  A CUDA tensor of at least ``STAGE_MIN_BYTES``
+    comes back block by block through the ring of pinned buffers, up to
+    ``_STAGE_SLOTS`` device copies ahead of the host copies: on one
+    H100's host a pageable copy of 1 GiB from the device ran at 2.5
+    GB/s, a pinned one at 55 GB/s (chip_smoke.py phase 10)."""
+    if x.device.type == "cpu":
+        return x.numpy()
+    if x.nbytes < STAGE_MIN_BYTES:
+        return x.cpu().numpy()
+    out = torch.empty(x.shape, dtype=x.dtype)
+    src = x.contiguous().reshape(-1).view(torch.uint8)
+    dst = out.reshape(-1).view(torch.uint8)
+    blocks = [(s, min(src.numel(), s + _STAGE_BLOCK))
+              for s in range(0, src.numel(), _STAGE_BLOCK)]
+    stream = torch.cuda.current_stream(x.device)
+    with _stage_lock:
+        bufs, done = _stage_ring(x.device)
+
+        def fetch(k):  # block k from the device into its pinned buffer
+            s, e = blocks[k]
+            slot = k % _STAGE_SLOTS
+            done[slot].synchronize()
+            bufs[slot][:e - s].copy_(src[s:e], non_blocking=True)
+            done[slot].record(stream)
+
+        for k in range(min(_STAGE_SLOTS, len(blocks))):
+            fetch(k)
+        for k, (s, e) in enumerate(blocks):
+            slot = k % _STAGE_SLOTS
+            done[slot].synchronize()
+            dst[s:e].copy_(bufs[slot][:e - s])
+            if k + _STAGE_SLOTS < len(blocks):
+                fetch(k + _STAGE_SLOTS)
+    return out.numpy()
+
+
+def _stage_ring(device: torch.device):
+    """The device's ring of pinned buffers and their events (the caller
+    holds ``_stage_lock``)."""
+    ring = _stage_rings.get(str(device))
+    if ring is None:
+        ring = ([torch.empty(_STAGE_BLOCK, dtype=torch.uint8,
+                             pin_memory=True)
+                 for _ in range(_STAGE_SLOTS)],
+                [torch.cuda.Event() for _ in range(_STAGE_SLOTS)])
+        _stage_rings[str(device)] = ring
+    return ring
+
+
 def _staged_copy(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     """Copy a pageable host tensor to a CUDA device block by block
     through a ring of pinned buffers: each block is copied into a free
@@ -76,14 +129,7 @@ def _staged_copy(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     dst = out.reshape(-1).view(torch.uint8)
     stream = torch.cuda.current_stream(device)
     with _stage_lock:
-        ring = _stage_rings.get(str(device))
-        if ring is None:
-            ring = ([torch.empty(_STAGE_BLOCK, dtype=torch.uint8,
-                                 pin_memory=True)
-                     for _ in range(_STAGE_SLOTS)],
-                    [torch.cuda.Event() for _ in range(_STAGE_SLOTS)])
-            _stage_rings[str(device)] = ring
-        bufs, done = ring
+        bufs, done = _stage_ring(device)
         for k, s in enumerate(range(0, src.numel(), _STAGE_BLOCK)):
             e = min(src.numel(), s + _STAGE_BLOCK)
             slot = k % _STAGE_SLOTS
@@ -115,6 +161,9 @@ class Column:
         self.data = data
         self.validity = validity
         self._device: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
+        # a CUDA event after each copy the ingest worker made, until a
+        # query has seen it complete
+        self._ready: Dict[str, "torch.cuda.Event"] = {}
         self._lock = threading.Lock()
 
     @property
@@ -140,10 +189,53 @@ class Column:
                        None if self.validity is None
                        else to_device(self.validity, device))
                 self._device[key] = got
+            self._wait_ready(key, device)
         # note_use may evict THIS column when the budget is smaller than
         # one column: return the local handle, not the cache entry
         device_cache_manager().note_use(self, self._device_bytes())
         return got
+
+    def _wait_ready(self, key: str, device: torch.device) -> None:
+        """Order the caller's stream after the ingest worker's copy of
+        this column, if it made one that may still run (the caller holds
+        ``_lock``)."""
+        ready = self._ready.get(key)
+        if ready is not None:
+            if ready.query():
+                del self._ready[key]
+            else:
+                torch.cuda.current_stream(device).wait_event(ready)
+
+    def prefetch_device(self, device: torch.device) -> None:
+        """Copy this column to ``device`` on the ingest worker, so that
+        the next column's host decode overlaps this copy.  On a CUDA
+        device the copy goes on the default stream and an event records
+        its end; a query on any stream waits for it.  A failure only
+        drops the cache: the query's own ``device_arrays`` call copies
+        again and raises there."""
+        def work():
+            try:
+                if device.type != "cuda":
+                    self.device_arrays(device)
+                    return
+                stream = torch.cuda.default_stream(device)
+                with torch.cuda.stream(stream), self._lock:
+                    key = str(device)
+                    if key not in self._device:
+                        self._device[key] = (
+                            to_device(self.data, device),
+                            None if self.validity is None
+                            else to_device(self.validity, device))
+                        ev = torch.cuda.Event()
+                        ev.record(stream)
+                        self._ready[key] = ev
+                from .memory import device_cache_manager
+
+                device_cache_manager().note_use(self, self._device_bytes())
+            except Exception:  # the foreground copy raises it again
+                self.drop_device_cache()
+
+        _ingest_pool().submit(work)
 
     def device_rows(self, device: torch.device,
                     ranges: Sequence[Tuple[int, int]]):
@@ -157,6 +249,7 @@ class Column:
         key = str(device)
         with self._lock:
             whole = self._device.get(key)
+            self._wait_ready(key, device)
         if whole is not None:
             device_cache_manager().note_use(self, self._device_bytes())
             return tuple(None if x is None else _take_rows(x, ranges)
@@ -180,6 +273,7 @@ class Column:
     def drop_device_cache(self, _from_manager: bool = False) -> None:
         with self._lock:
             self._device = {}
+            self._ready = {}
         if not _from_manager:
             from .memory import device_cache_manager
 
@@ -199,6 +293,23 @@ class Column:
             return FragmentStats(row_start, row_end, None, None, nulls)
         return FragmentStats(row_start, row_end, sl.min().item(),
                              sl.max().item(), nulls)
+
+
+_INGEST_POOL = None
+_INGEST_POOL_LOCK = threading.Lock()
+
+
+def _ingest_pool():
+    """The process's ingest worker: one thread keeps the prefetch copies
+    in order and leaves the decoding thread the rest of the host."""
+    global _INGEST_POOL
+    with _INGEST_POOL_LOCK:
+        if _INGEST_POOL is None:
+            import concurrent.futures
+
+            _INGEST_POOL = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="hdk-torch-ingest")
+        return _INGEST_POOL
 
 
 class Table:
@@ -246,6 +357,19 @@ class Table:
         self._by_name[ROWID_NAME] = col
         self.columns.append(col)
         return col
+
+    def prefetch_stats_async(self) -> None:
+        """Compute every column's fragment stats on the ingest worker, so
+        that the first query's layout choice reads them ready."""
+        def work():
+            try:
+                for c in self.columns:
+                    for frag in self.fragments:
+                        self.stats(c.info.name, frag)
+            except Exception:  # the query's own stats call raises it
+                return
+
+        _ingest_pool().submit(work)
 
     @property
     def fragments(self) -> List[Tuple[int, int]]:

@@ -1,26 +1,31 @@
-"""User-defined scalar functions.
+"""User-defined scalar functions with torch bodies.
 
 Reference: omniscidb/QueryEngine/UdfCompiler.h:30 — the reference
 compiles C++ UDF sources to LLVM IR and links them into generated
-kernels.  The TPU-native analog registers a *jax-traceable* Python
-function: it is traced straight into the same fused XLA program as the
-rest of the query step, so a UDF fuses with its surrounding expressions
-exactly like a builtin (no FFI boundary, no separate compilation
-pipeline).
+kernels.  Here a UDF is a Python function over torch tensors that the
+scalar evaluator calls where the expression stands, on the session's
+device, like any builtin.
 
 Contract for registered functions:
-  * called with one jnp array per argument (the column data, never the
-    validity mask), all of equal length;
-  * must be traceable by jax (no Python control flow on values) and
-    shape-preserving;
+  * called with one torch tensor per argument (the column data, never the
+    validity mask), on the session's device, each of the same length (a
+    constant argument may come as a 0-d tensor);
+  * returns a tensor of that length, which is cast to the declared
+    return type;
+  * runs eagerly: reading a value on the host (``.item()``, a Python
+    ``if`` on a tensor) synchronizes the device, which is allowed and
+    costs the caller;
   * NULL handling is SQL-style by default: an output row is NULL when
     any input row is NULL (``null_propagation=True``).  With
     ``null_propagation=False`` the function receives a trailing
-    ``valid`` bool array (or None) and must return ``(data, mask)``.
+    ``valid`` bool tensor (or None) and must return ``(data, mask)``.
+
+Registering a name again replaces its body; steps that call it are then
+built anew.
 
 Example::
 
-    hdk.register_udf("gcd", lambda a, b: jnp.gcd(a, b),
+    hdk.register_udf("gcd", lambda a, b: torch.gcd(a, b),
                      arg_types=[t.int64(), t.int64()], ret_type=t.int64())
     hdk.sql("SELECT gcd(a, b) FROM t")
     ht.proj(g=hdk.call("gcd", ht["a"], ht["b"]))
@@ -45,8 +50,8 @@ class Udf:
 
 class UdfRegistry:
     """Session-scoped registry (reference: table of ExtensionFunction
-    signatures).  ``generation`` feeds compiled-plan cache keys so
-    re-registering a name invalidates stale traces."""
+    signatures).  ``generation`` feeds the step cache keys of plans that
+    call a UDF, so re-registering a name builds their steps anew."""
 
     def __init__(self) -> None:
         self._udfs: Dict[str, Udf] = {}

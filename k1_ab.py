@@ -3,7 +3,7 @@
 CUDA card, for comparing two trees in one call.
 
     python3 k1_ab.py --tree DIR [--label NAME] [--kernel k1|k2|k3|k4] [--sweep]
-                     [--queries main|q3|joins]
+                     [--queries main|q3|joins|stream]
 
 ``--kernel k1`` (the default) times K1, ``groupby_sums``:
 
@@ -57,7 +57,10 @@ ids), its warm latency beside the same numbers for the kernel.
 ``--queries joins`` times phase 7's J1 and J2 (100M probe rows into a
 10M-row build), J5 (an IN subquery) and TPC-H Q3 instead, each after six
 runs that let the tree's route and plan A/Bs settle, with the route the
-last run took.
+last run took.  ``--queries stream`` times only phase 9's streamed TPC-H
+Q1 and Q6 over lineitem at SF100 (600M rows, more than the scan budget;
+each run must stream), beside the host's pinned 1 GiB host-to-device
+copy rate, and no kernel.
 """
 
 from __future__ import annotations
@@ -477,6 +480,27 @@ def join_rows(mod, cs):
     return out
 
 
+def stream_rows(mod, cs):
+    """Warm latency of phase 9's streamed TPC-H Q1 and Q6 (600M lineitem
+    rows), with the chunk count of the last run."""
+    hdk = mod.HDK(device="cuda")
+    t = mod.types
+    hdk.import_pydict(cs.gen_lineitem(cs.STREAM_LINEITEM_ROWS),
+                      name="lineitem", schema={
+                          "l_shipdate": t.timestamp(t.TimeUnit.SECOND,
+                                                    False)})
+    ex = hdk._executor
+    out = {"h2d_pinned_GBps": cs.h2d_rates()[0] / 1e9}
+    for name, sql in (("stream_tpch_q1", cs.TPCH_Q1),
+                      ("stream_tpch_q6", cs.TPCH_Q6)):
+        out[name] = warm_latency(lambda: hdk.sql(sql))
+        out[name]["chunks"] = ex._frag_stream_chunks
+        if not ex._frag_stream_chunks or ex._frag_stream_chunks < 2:
+            raise SystemExit(f"{name} did not stream")
+    hdk.drop_table("lineitem")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", required=True)
@@ -486,11 +510,12 @@ def main() -> None:
                     default="k1")
     ap.add_argument("--no-queries", action="store_true",
                     help="k2/k3/k4: time the kernel alone")
-    ap.add_argument("--queries", choices=("main", "q3", "joins"),
+    ap.add_argument("--queries", choices=("main", "q3", "joins", "stream"),
                     default="main",
                     help="q3: time TPC-H Q3, joins: J1, J2, J5 and "
                          "TPC-H Q3, in place of the kernel's main-path "
-                         "queries")
+                         "queries; stream: the streamed TPC-H Q1 and Q6 "
+                         "alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_ab.py needs a CUDA card")
@@ -507,6 +532,12 @@ def main() -> None:
     src = os.path.dirname(os.path.abspath(hdk_tpu_torch.__file__))
     if os.path.dirname(src) != tree:
         raise SystemExit(f"hdk_tpu_torch loaded from {src}, not {tree}")
+    if args.queries == "stream":
+        print(json.dumps({"label": args.label, "tree": tree,
+                          "card": cs.gpu_line(),
+                          "queries": stream_rows(hdk_tpu_torch, cs)}),
+              flush=True)
+        return
     hist.groupby_sums(torch.zeros(8, dtype=torch.int32, device="cuda"),
                       [torch.zeros(8, device="cuda")]
                       if hasattr(hist, "K1_MAX_COLS")

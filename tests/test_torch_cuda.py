@@ -2,10 +2,11 @@
 the shared-memory and the global-atomic mode and over the sorted group
 ids of the sort-based group-by, K1 at the shapes its design treats
 apart, and the main path, the sort route, scalar subqueries, joins,
-window functions, array columns and the executor's controls (fragment
+window functions, array columns, the executor's controls (fragment
 streaming and skipping, the watchdog, route feedback, EXPLAIN ANALYZE)
-on a CUDA session against the same session on the CPU.  Skips where there
-is no card.  On the card, without jax:
+and the facade (a stream, a UDF, a spilled result) on a CUDA session
+against the same session on the CPU, and the device memory that an
+offload and ``clear_device_mem`` free.  Skips where there is no card.  On the card, without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -594,3 +595,91 @@ def test_controls_on_the_card(cuda, monkeypatch):
         assert text.splitlines()[0].endswith(", 6 rows]")
         out.append(got)
     _same_results(queries + ["watchdog"], out)
+
+
+def test_facade_on_the_card(cuda, monkeypatch):
+    """chip_smoke.py phase 10 at a small size on a CUDA session against a
+    CPU session: S1's stream of taxi batches (through K1, K3 and K4), U1's
+    UDF in taxi Q2's GROUP BY (K1 and K4) and P1's projection offloaded
+    and read back: the same rows, no plain version on a CUDA tensor."""
+    import chip_smoke as cs
+
+    data = cs.gen_taxi(200_000)
+    t = hdk_tpu_torch.types
+    udf_q = ("SELECT passenger_count, AVG(fare_per_mile(total_amount, "
+             "trip_distance)) AS fpm FROM trips GROUP BY passenger_count")
+    out = []
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            _refuse_plain_versions(monkeypatch)
+        hdk = hdk_tpu_torch.HDK(device=device)
+        got = []
+        before = hist.launches()
+        st = hdk.create_stream(cs.STREAM_SCHEMA, ["passenger_count"],
+                               cs.STREAM_AGGS)
+        for b in range(4):
+            st.push({c: data[c][b * 50_000:(b + 1) * 50_000]
+                     for c in cs.STREAM_SCHEMA})
+        got.append(st.finish().to_numpy())
+        used = {k: hist.launches()[k] - before[k] for k in before}
+        if device == "cuda":
+            assert all(used[k] > 0 for k in cs.FACADE_STREAM_KERNELS), used
+        hdk.register_udf(
+            "fare_per_mile",
+            lambda a, b: a.to(torch.float64)
+            / torch.clamp(b.to(torch.float64), min=0.1),
+            arg_types=[t.fp64(), t.fp64()], ret_type=t.fp64())
+        ht = hdk.import_pydict(dict(data), name="trips")
+        before = hist.launches()
+        got.append(hdk.sql(udf_q).to_numpy())
+        used = {k: hist.launches()[k] - before[k] for k in before}
+        if device == "cuda":
+            assert all(used[k] > 0 for k in cs.FACADE_UDF_KERNELS), used
+        res = ht.proj(d=ht["trip_distance"].cast("fp64") + 1,
+                      a=ht["total_amount"] * 2).run()
+        res.offload()
+        assert res._table is None
+        got.append(res.to_numpy())
+        out.append(got)
+    _same_results(["stream", "udf", "spill"], out, f32_rtol=1e-6)
+
+
+def test_offload_and_clear_free_device_memory(cuda):
+    """``offload`` frees at least the result's bytes on the card and
+    ``clear_device_mem`` the table columns' bytes; a stream leaves at
+    most one batch's bytes behind; everything reads back equal."""
+    import gc
+
+    def allocated():
+        gc.collect()
+        return torch.cuda.memory_allocated()
+
+    hdk = hdk_tpu_torch.HDK(device="cuda")
+    rng = np.random.default_rng(3)
+    k = rng.integers(0, 9, 2_000_000)
+    v = rng.normal(size=2_000_000)
+    ht = hdk.import_pydict({"k": k, "v": v}, name="mem_t")
+    res = ht.proj(a=ht["k"] * 3, b=ht["v"] + 1).run().block()
+    nbytes = res._nbytes()
+    m0 = allocated()
+    res.offload()
+    assert m0 - allocated() >= nbytes
+    out = res.to_numpy()
+    assert np.array_equal(out["a"], k * 3)
+    assert np.array_equal(out["b"], v + 1)
+    del res, out
+    col_bytes = sum(x.nbytes for c in hdk._schema.get("mem_t").columns
+                    for pair in c._device.values() for x in pair
+                    if x is not None)
+    assert col_bytes >= k.nbytes + v.nbytes
+    m0 = allocated()
+    hdk.clear_device_mem()
+    assert m0 - allocated() >= col_bytes
+    m0 = allocated()
+    st = hdk.create_stream({"k": "int64", "v": "fp64"}, ["k"],
+                           ["count", "sum(v)"])
+    for b in range(4):
+        st.push({"k": k[b::4], "v": v[b::4]})
+    fin = st.finish().to_numpy()
+    assert fin["count"].sum() == len(k)
+    assert allocated() - m0 <= (k.nbytes + v.nbytes) // 4

@@ -82,6 +82,85 @@ print(json.dumps({
 """
 
 
+_FACADE_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import hdk_tpu_torch
+hdk = hdk_tpu_torch.HDK(device="cpu", **{"exec.enable_interop": True})
+st = hdk.create_stream({"k": "int64", "v": "fp64"}, ["k"],
+                       ["count", "sum(v)", "stddev(v)",
+                        "approx_count_distinct(v)"])
+st.push({"k": np.array([1, 2, 1]), "v": np.array([1.0, 2.0, 3.0])})
+st.push({"k": np.array([1, 2]), "v": np.array([5.0, 4.0])})
+stream = st.finish().to_numpy()
+hdk.import_pydict({"k": np.array([1, 22])}, name="t")
+sub = hdk.sql("SELECT SUBSTR('abc' || k, 2, 3) AS x FROM t").to_numpy()
+print(json.dumps({
+    "modules": sorted(m for m in sys.modules
+                      if m in ("jax", "pandas", "hdk_tpu")
+                      or m.startswith(("jax.", "pandas.", "hdk_tpu."))),
+    "stream_module": hdk_tpu_torch.streaming.__file__,
+    "count": [int(x) for x in stream["count"]],
+    "substr": [str(x) for x in sub["x"]],
+}))
+"""
+
+
+def test_streaming_and_interop_load_neither_pandas_nor_jax():
+    """A stream, and a query that SQLite answers with a text column (the
+    engine has neither SUBSTR nor ||), in a fresh interpreter: the port's
+    own streaming module, and no jax, pandas or hdk_tpu module."""
+    got = _run(_FACADE_PROBE)
+    assert got["modules"] == []
+    assert got["stream_module"] == os.path.join(
+        REPO, "hdk_tpu_torch", "streaming.py")
+    assert got["count"] == [3, 2]
+    assert got["substr"] == ["bc1", "bc2"]
+
+
+# public calls of hdk_tpu's facade the port leaves to multi-device
+# sessions (ROADMAP A9)
+_A9_ONLY = {
+    # process-local ingest shards a table across hosts
+    "process_local",
+    # unifies the string dictionaries of process-local shards
+    "_unify_process_local_dicts",
+}
+
+
+def _public(cls):
+    return {n for n in dir(cls) if not n.startswith("_")}
+
+
+def test_facade_parity():
+    """Every public method and property of hdk_tpu's HDK and QueryResult
+    exists in the port, but for the multi-device ones; and each facade
+    method takes the reference's parameters (plus the port's ``device``)."""
+    import inspect
+
+    import hdk_tpu
+    import hdk_tpu_torch
+
+    for ref, port in ((hdk_tpu.HDK, hdk_tpu_torch.HDK),
+                      (hdk_tpu.QueryResult, hdk_tpu_torch.QueryResult)):
+        missing = _public(ref) - _public(port) - _A9_ONLY
+        assert not missing, f"{port.__name__} lacks {sorted(missing)}"
+        for name in sorted(_public(ref)):
+            a, b = getattr(ref, name), getattr(port, name)
+            if not inspect.isfunction(a):
+                continue
+            want = [p for p in inspect.signature(a).parameters
+                    if p not in _A9_ONLY]
+            got = list(inspect.signature(b).parameters)
+            if name == "__init__":
+                got.remove("device")
+            assert got == want, (port.__name__, name, got, want)
+    ref_params = inspect.signature(hdk_tpu.HDK.import_pydict).parameters
+    assert "process_local" in ref_params
+    assert hasattr(hdk_tpu.HDK, "_unify_process_local_dicts")
+
+
 def _run(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code, REPO],
