@@ -72,13 +72,24 @@ Phases, each printed as it runs:
      oldest spill) and ``clear_device_mem``; I1 SQLite answering a
      recursive CTE and SUBSTR over 100k rows; and ``import_arrow`` then
      taxi Q2 with the device prefetch on and off (where pyarrow is
-     installed); each against numpy.
+     installed); each against numpy;
+ 11. multi-device: a session of 4 shards on the card beside a
+     single-device one, taxi Q2 (``dense_psum``) and Q3 sorted by its
+     count (``dense_psum_fused_sort``) over 100M rows, W1 with a LIMIT
+     (``dist_window``), the nulls GROUP BY (K2), a COUNT(DISTINCT)
+     (``distinct_split``) and an ORDER BY + LIMIT 200000 (the range sort)
+     over 10M rows, HN1 (``two_phase``), J1 (partitioned join) and J5's
+     IN subquery (broadcast), each on its expected route and equal to
+     its numpy oracle or else to the single-device result; per query the
+     routes, warm ms beside the single-device warm ms, retries and
+     ``commlog.summarize`` of its capture.
 Phases 5-6 are the sort route, phase 7 the join path, phase 8 the
-window path, phase 9 the controls and phase 10 the facade: each phase's
-kernel launches count apart from the others', every kernel must launch
-on phases 4 and 5-6, the kernels of TPC-H Q3 on phase 7, W3's (K1 and
-K4) on phase 8, the streamed Q1's (K1, K3 and K4) on phase 9, and S1's
-(K1, K3 and K4) and U1's (K1 and K4) on phase 10.  Each phase ends with
+window path, phase 9 the controls, phase 10 the facade and phase 11 the
+multi-device path: each phase's kernel launches count apart from the
+others', every kernel must launch on phases 4, 5-6 and 11, the kernels
+of TPC-H Q3 on phase 7, W3's (K1 and K4) on phase 8, the streamed Q1's
+(K1, K3 and K4) on phase 9, and S1's (K1, K3 and K4) and U1's (K1 and
+K4) on phase 10.  Each phase ends with
 the device cache's evictions and resident bytes.  The line
 before the last is a JSON object with the per-kernel results (every
 phase-3 case under ``cases``); the last line is
@@ -2155,6 +2166,293 @@ def facade_phase(hdk_mod, card, hist, device="cuda", taxi_rows=TAXI_ROWS,
     return used
 
 
+# -- phase 11: multi-device sessions --------------------------------------
+
+DIST_SHARDS = 4
+# phase 11 must launch every histogram kernel on its shards
+DIST_KERNELS = ("count_hist", "groupby_sums2", "seg_sums_exact",
+                "groupby_sums")
+DIST_DISTINCT_Q = ("SELECT g % 10 AS b, COUNT(DISTINCT g) AS dg, "
+                   "COUNT(*) AS c, SUM(x) AS sx FROM t GROUP BY g % 10")
+DIST_SORT_Q = "SELECT g, x, y FROM t ORDER BY y DESC, g LIMIT 200000"
+# W1 with a LIMIT over its 90 rows: the ORDER BY takes the top-n path,
+# not a range sort whose buffers size by the 100M rows
+DIST_W1 = W1 + " LIMIT 100"
+
+
+def result_rows(out, ordered: bool):
+    """(NULL flags, values) per column of a to_numpy result; unordered
+    results in lexicographic order of both."""
+    cols = []
+    for v in out.values():
+        null = np.ma.getmaskarray(v)
+        cols.append((null, np.where(null, 0, np.ma.getdata(v))))
+    if not ordered and cols and len(cols[0][0]):
+        keys = [c for pair in cols for c in pair]
+        order = np.lexsort(keys[::-1])
+        cols = [(n[order], d[order]) for n, d in cols]
+    return cols
+
+
+def same_result(got, want, what: str, ordered: bool, rtol: float = 1e-9):
+    """Two to_numpy results hold the same rows: integers and NULLs equal,
+    floats to ``rtol``."""
+    check(list(got) == list(want), f"{what}: columns {list(got)}")
+    for (gn, gv), (wn, wv) in zip(result_rows(got, ordered),
+                                  result_rows(want, ordered)):
+        check(gn.shape == wn.shape, f"{what}: {gn.size} rows, want "
+              f"{wn.size}")
+        equal(gn, wn, f"{what} NULLs")
+        if wv.dtype.kind == "f":
+            close(gv, wv, rtol, what)
+        else:
+            equal(gv, wv, what)
+
+
+def dist_phase(hdk_mod, card, hist, device="cuda", shards=DIST_SHARDS,
+               taxi_rows=TAXI_ROWS, nulls_rows=NULLS_ROWS,
+               ndv_rows=HIGH_NDV_ROWS, ndv_keys=HIGH_NDV_KEYS,
+               join_scale=1.0, want=DIST_KERNELS, config=None):
+    """Phase 11: a session of ``shards`` shards on the one card beside a
+    single-device session on the same data.  Each query runs cold (its
+    collectives captured) and three times warm in both (the median
+    reported); it must take its expected
+    distributed route and equal its numpy oracle or the single-device
+    result (a query without an oracle).  Kernel launches count on the
+    distributed runs only, reset before each and read after it; returns
+    their sum per kernel."""
+    from hdk_tpu_torch.utils import commlog
+
+    t_phase = time.perf_counter()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    solo = hdk_mod.HDK(device=device)
+    dist = hdk_mod.HDK(device=device, **{"dist.enable": True,
+                                         "dist.num_devices": shards,
+                                         **(config or {})})
+    ex = dist._executor
+    mesh = ex._mesh
+    check(mesh is not None and mesh.size == shards,
+          f"dist session: no {shards}-shard mesh")
+    check(all(d.type == torch.device(device).type for d in mesh.devices),
+          f"dist session: shards on {mesh.devices}")
+    log(f"phase 11: {shards} shards on {sorted({str(d) for d in mesh.devices})}"
+        f" [{card}]")
+    totals = {k: 0 for k in hist.launches()}
+    t = hdk_mod.types
+    ts_schema = {"pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)}
+
+    def counted(run):
+        hist.reset_launches()
+        res = run()
+        res.block()
+        for k, n in hist.launches().items():
+            totals[k] += n
+        return res
+
+    def warm_s(run, count=False):
+        """Median of three warm runs."""
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            (counted(run) if count else run().block())
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    def query(label, make, rows, routes, oracle=None, ordered=False,
+              rtol=1e-9):
+        """``make(session)`` -> result; ``routes``: {executor attribute:
+        label} the distributed runs must show."""
+        res_s = make(solo).block()
+        solo_ms = warm_s(lambda: make(solo)) * 1e3
+        with commlog.capture() as rec:
+            t0 = time.perf_counter()
+            res_d = counted(lambda: make(dist))
+            cold = time.perf_counter() - t0
+        got_routes = {a: getattr(ex, a) for a in routes}
+        retries = ex._dist_retries
+        dist_ms = warm_s(lambda: make(dist), count=True) * 1e3
+        for attr, want_route in routes.items():
+            check(got_routes[attr] == want_route,
+                  f"{label}: {attr}={got_routes[attr]}, want {want_route}")
+        out = res_d.to_numpy()
+        if oracle is not None:
+            oracle(out)
+        else:
+            same_result(out, res_s.to_numpy(), f"{label} vs one device",
+                        ordered, rtol)
+        ops = [r for r in rec if not r.get("gather")]
+        gathers = [r for r in rec if r.get("gather")]
+        summary = commlog.summarize(ops, shards)
+        log(f"dist {label}: routes={got_routes} rows={rows} cold_s={cold!r} "
+            f"warm_ms={dist_ms!r} single_device_warm_ms={solo_ms!r} "
+            f"retries={retries} commlog={json.dumps(summary)} "
+            f"gathers={len(gathers)} gather_bytes_per_shard="
+            f"{sum(r['bytes_per_device'] for r in gathers)} [{card}]")
+        return out
+
+    # taxi Q2 (dense_psum) and Q3 sorted by its count (the fused sort)
+    t0 = time.perf_counter()
+    data = gen_taxi(taxi_rows)
+    log(f"phase 11: taxi {taxi_rows} rows in {time.perf_counter() - t0:.1f} s")
+    for s in (solo, dist):
+        s.import_pydict(dict(data), name="trips", schema=ts_schema)
+    pc = data["passenger_count"].astype(np.int64)
+
+    def q2_oracle(out):
+        cnt = np.bincount(pc, minlength=9)
+        sums = np.bincount(pc, weights=data["total_amount"].astype(
+            np.float64), minlength=9)
+        equal(out["passenger_count"], np.arange(9), "dist taxi_q2 keys")
+        close(out["total_amount_avg"], sums / cnt, 1e-6, "dist taxi_q2 avg")
+
+    query("taxi_q2", lambda s: s.scan("trips").agg(
+        "passenger_count", "avg(total_amount)").run(), taxi_rows,
+        {"_dist_agg_route": "dense_psum"}, q2_oracle)
+
+    def q3_sorted(s):
+        ht = s.scan("trips")
+        return ht.agg(["passenger_count",
+                       ht["pickup_datetime"].extract("year").name("y")],
+                      "count").sort(("count", "desc")).run()
+
+    def q3_oracle(out):
+        uniq, inv = group_ids(pc, years(data["pickup_datetime"]))
+        counts = np.bincount(inv)
+        order = np.argsort(-counts, kind="stable")
+        equal(np.stack([out["passenger_count"], out["y"]], 1), uniq[order],
+              "dist taxi_q3 keys")
+        equal(out["count"], counts[order], "dist taxi_q3 count")
+
+    query("taxi_q3_sorted", q3_sorted, taxi_rows,
+          {"_dist_agg_route": "dense_psum_fused_sort"}, q3_oracle,
+          ordered=True)
+
+    # W1: ROW_NUMBER top 10 per passenger count on the dist_window route
+    query("W1", lambda s: s.sql(DIST_W1), taxi_rows,
+          {"_dist_window_route": "dist_window"}, ordered=True)
+    for s in (solo, dist):
+        s.drop_table("trips")
+    del data, pc
+    torch.cuda.empty_cache()
+
+    # the nulls GROUP BY (K2), a COUNT(DISTINCT) on the distinct_split
+    # route and an ORDER BY + LIMIT above the top-n limit (range sort)
+    nulls = gen_nulls(nulls_rows)
+    for s in (solo, dist):
+        s.import_pydict(nulls, name="t")
+    g = nulls["g"]
+
+    def nulls_oracle(out):
+        cols = list(out.values())
+        xv = ~np.ma.getmaskarray(nulls["x"])
+        yv = ~np.ma.getmaskarray(nulls["y"])
+        xsum = np.zeros(1000, np.int64)
+        np.add.at(xsum, g[xv], nulls["x"].data[xv])
+        ysum = np.bincount(g[yv], weights=nulls["y"].data[yv], minlength=1000)
+        equal(cols[0], np.arange(1000), "dist nulls keys")
+        equal(cols[1], np.bincount(g, minlength=1000), "dist nulls count(*)")
+        equal(cols[2], np.bincount(g[xv], minlength=1000),
+              "dist nulls count(x)")
+        equal(cols[3], xsum, "dist nulls sum(x)")
+        close(cols[4], ysum / np.bincount(g[yv], minlength=1000), 1e-9,
+              "dist nulls avg(y)")
+
+    query("nulls", lambda s: s.sql(NULLS_Q), nulls_rows,
+          {"_dist_agg_route": "dense_psum_fused_sort"}, nulls_oracle,
+          ordered=True)
+
+    def distinct_oracle(out):
+        b = g % 10
+        order = np.argsort(out["b"])
+        equal(out["b"][order], np.arange(10), "dist distinct keys")
+        equal(out["dg"][order], [np.unique(g[b == i]).size
+                                 for i in range(10)], "dist distinct dg")
+        equal(out["c"][order], np.bincount(b, minlength=10),
+              "dist distinct count")
+
+    query("count_distinct", lambda s: s.sql(DIST_DISTINCT_Q), nulls_rows,
+          {"_dist_agg_route": "distinct_split"}, distinct_oracle)
+    query("order_by_limit", lambda s: s.sql(DIST_SORT_Q), nulls_rows,
+          {"_dist_sort_route": "range"}, ordered=True)
+    for s in (solo, dist):
+        s.drop_table("t")
+    del nulls, g
+
+    # HN1: ~43M groups on the two-phase route
+    t0 = time.perf_counter()
+    hn = gen_high_ndv(ndv_rows, ndv_keys)
+    counts = np.bincount(hn["k"], minlength=ndv_keys)
+    sums = np.bincount(hn["k"], weights=hn["v"], minlength=ndv_keys)
+    present = np.flatnonzero(counts)
+    log(f"phase 11: high-NDV {ndv_rows} rows, {present.size} groups, "
+        f"oracle in {time.perf_counter() - t0:.1f} s")
+    for s in (solo, dist):
+        s.import_pydict(hn, name="ndv_t")
+
+    def hn1_oracle(out):
+        order = np.argsort(out["k"])
+        equal(out["k"][order], present, "dist HN1 keys")
+        equal(out["count"][order], counts[present], "dist HN1 count")
+        equal(out["v_sum"][order], sums[present].astype(np.int64),
+              "dist HN1 sum(v)")
+
+    query("HN1", lambda s: s.scan("ndv_t").agg("k", "count",
+                                               "sum(v)").run(),
+          ndv_rows, {"_dist_agg_route": "two_phase"}, hn1_oracle)
+    for s in (solo, dist):
+        s.drop_table("ndv_t")
+    del hn, counts, sums, present
+    torch.cuda.empty_cache()
+
+    # J1 (partitioned: its 10M-row build is above the broadcast
+    # threshold) and J5's IN subquery (broadcast: 1.35M filtered rows)
+    t0 = time.perf_counter()
+    trips, payments = gen_join(join_scale, seed=11)
+    n_probe = trips["k"].size
+    fee_of = np.empty(payments["k"].size, np.float64)
+    fee_of[payments["k"]] = payments["fee"]
+    log(f"phase 11: join data in {time.perf_counter() - t0:.1f} s")
+    for s in (solo, dist):
+        s.import_pydict(trips, name="trips_j")
+        s.import_pydict(payments, name="payments_j")
+    check(payments["k"].size > dist.config.dist.broadcast_join_threshold
+          or join_scale < 1, "J1's build is not above the threshold")
+
+    def j1_oracle(out):
+        count, fee = out.values()
+        equal(count, [n_probe], "dist J1 count")
+        close(fee, [fee_of[trips["k"]].sum()], 1e-6, "dist J1 sum(fee)")
+
+    query("J1", lambda s: s.scan("trips_j").join(
+        s.scan("payments_j"), "k", "k").agg([], "count", "sum(fee)").run(),
+        n_probe, {"_dist_join_route": "partitioned"}, j1_oracle, rtol=1e-6)
+
+    def j5_oracle(out):
+        count, amt = out.values()
+        in_set = np.zeros(payments["k"].size, bool)
+        in_set[payments["k"][payments["fee"].astype(np.float64) > 4.0]] = True
+        sel = in_set[trips["k"]]
+        equal(count, [int(sel.sum())], "dist J5 count")
+        close(amt, [trips["amt"][sel].astype(np.float64).sum()], 1e-6,
+              "dist J5 sum")
+
+    query("J5_broadcast", lambda s: s.sql(J5_IN), n_probe,
+          {"_dist_join_route": "broadcast"}, j5_oracle, rtol=1e-6)
+    for s in (solo, dist):
+        drop_tables(s, "trips_j", "payments_j")
+    del trips, payments, fee_of, solo, dist
+    torch.cuda.empty_cache()
+    for name in want:
+        check(totals[name] > 0, f"kernel {name} never launched on the "
+              f"multi-device path ({totals})")
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.cuda.is_available() else None)
+    log(f"multi-device path: kernel launches {totals}; phase 11 in "
+        f"{time.perf_counter() - t_phase:.1f} s, peak_device_bytes={peak}")
+    return totals
+
+
 # slots of each kernel's headline case in the kernels line
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
@@ -2297,6 +2595,13 @@ def main() -> None:
     log(f"facade path: kernel launches {facade_launches}")
     log_device_cache("phase 10")
 
+    # phase 11: a 4-shard session on the one card beside a single-device
+    # one; its counts are the distributed runs' only (reset before each)
+    torch.cuda.empty_cache()
+    dist_launches = dist_phase(hdk_tpu_torch, card, hist)
+    check("jax" not in sys.modules, "jax was imported")
+    log_device_cache("phase 11")
+
     kernels = []
     for name, rec in report.items():
         # the headline case: taxi Q4's segment count, the kernel's widest
@@ -2318,6 +2623,7 @@ def main() -> None:
             "window_path_launches": window_launches[name],
             "controls_path_launches": controls_launches[name],
             "facade_path_launches": facade_launches[name],
+            "dist_path_launches": dist_launches[name],
             "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it

@@ -266,10 +266,10 @@ class HDK:
         self._config = (config_kwargs.pop("config")
                         if "config" in config_kwargs
                         else build_config(**config_kwargs))
-        if self._config.dist.enable:
+        if self._config.dist.enable and self._config.dist.multi_host:
             raise NotImplementedError(
-                "multi-device sessions (dist.enable) are not ported yet "
-                "(ROADMAP A9)")
+                "multi-host sessions (dist.multi_host) are not ported yet "
+                "(ROADMAP A9b)")
         self._schema = SchemaRegistry()
         self._dicts = DictionaryRegistry()
         from .utils import logger as _logger
@@ -351,12 +351,18 @@ class HDK:
 
     def import_pydict(self, data: Dict[str, Sequence],
                       name: Optional[str] = None,
-                      schema: Optional[Dict[str, types.Type]] = None
-                      ) -> QueryNode:
+                      schema: Optional[Dict[str, types.Type]] = None,
+                      process_local: bool = False) -> QueryNode:
         """Columns from lists or numpy arrays; a ``numpy.ma.MaskedArray``
         carries NULLs where it is masked (no pyarrow needed), and a 2-D
         one (rows x width) is an array column whose masked elements are
-        absent, which gives lists of any length up to the width."""
+        absent, which gives lists of any length up to the width.
+        ``process_local`` (each host's own rows of one table) belongs to
+        multi-host sessions and raises (ROADMAP A9b)."""
+        if process_local:
+            raise NotImplementedError(
+                "process-local tables need multi-host sessions "
+                "(ROADMAP A9b)")
         name = self._table_name(name)
         cols = []
         for cname, values in data.items():

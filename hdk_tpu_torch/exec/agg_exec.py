@@ -33,6 +33,7 @@ import torch
 from .. import types as t
 from ..ir import expr as ir
 from ..ir import node as nd
+from ..parallel.dist_groupby import _COMBINE as _DIST_COMBINE
 from . import groupby as gb
 from . import ranges as rng
 from . import sort as srt
@@ -51,20 +52,10 @@ _IDENTITY_KINDS = frozenset({
 })
 
 # how each slot of a mergeable aggregate merges across fragment-stream
-# chunks (hdk_tpu/parallel/dist_groupby.py's _COMBINE, the entries the
-# stream takes); an empty group's MIN/MAX slot holds the identity
-_COMBINE = {
-    ir.AggKind.COUNT: ("sum",),
-    ir.AggKind.SUM: ("sum", "sum"),
-    ir.AggKind.AVG: ("sum", "sum"),
-    ir.AggKind.STDDEV_SAMP: ("sum", "sum", "sum"),
-    ir.AggKind.VAR_SAMP: ("sum", "sum", "sum"),
-    ir.AggKind.MIN: ("min", "sum"),
-    ir.AggKind.MAX: ("max", "sum"),
-    ir.AggKind.SAMPLE: ("min", "sum"),
-    ir.AggKind.SINGLE_VALUE: ("min", "sum"),
-    ir.AggKind.APPROX_COUNT_DISTINCT: ("max",),
-}
+# chunks: the distributed merge rules but the t-digest's re-clustering;
+# an empty group's MIN/MAX slot holds the identity
+_COMBINE = {k: v for k, v in _DIST_COMBINE.items()
+            if k != ir.AggKind.APPROX_QUANTILE}
 _MERGE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
 
 # dense entry counts where both group-by routes are timed (the JAX
@@ -81,7 +72,8 @@ def _perfect_key_type(typ: t.Type) -> bool:
 
 class AggExecMixin:
     def _exec_aggregate(self, node: nd.Aggregate, results) -> ExecTable:
-        source, chain, src_node = self._resolve_chain(node.inputs[0], results)
+        source, chain, src_node = self._resolve_chain_windowed(
+            node.inputs[0], results)
         if not node.keys:
             return self._agg_nogroup(node, source, chain, src_node)
         if source.nrows == 0:
@@ -94,6 +86,11 @@ class AggExecMixin:
         if stream is not None:
             return self._exec_aggregate_fragmented(node, source, chain,
                                                    src_node, *stream)
+        if self._mesh is not None:
+            out = self._exec_aggregate_dist_any(node, source, chain,
+                                                src_node)
+            if out is not None:
+                return out
         cols, exists, n, nbuf = self._group(node, source, chain, src_node,
                                             need_count=True, tune=True)
         # group-by output keys are distinct by construction: a downstream
@@ -160,7 +157,7 @@ class AggExecMixin:
         GROUP BY with a dense layout: inside the tuning window the first
         runs of a plan explore "perfect", then "sort", each timed;
         later runs take the faster."""
-        if (not self._feedback.enabled
+        if (not self._feedback.enabled or self._mesh is not None
                 or not _TUNE_ENTRIES[0] < layout.entry_count
                 <= _TUNE_ENTRIES[1]
                 or source.nrows < _TUNE_MIN_ROWS):
@@ -216,6 +213,8 @@ class AggExecMixin:
         buffer, order its rows with dead groups last (a stable
         lexicographic top-n: ties keep the lower group index first), and
         emit a validity window instead of a compaction."""
+        if self._mesh is not None:
+            return self._exec_fused_agg_sort_dist(sort_node, node, results)
         source, chain, src_node = self._resolve_chain(node.inputs[0], results)
         if source.nrows == 0:
             return None
@@ -232,6 +231,13 @@ class AggExecMixin:
                                              need_count=False)
         if self._analyze:  # EXPLAIN ANALYZE: the aggregate's groups
             self._fused_rows[_node_line(node)] = exists.sum()
+        return self._sort_group_buffer(sort_node, node, cols, exists, nbuf)
+
+    def _sort_group_buffer(self, sort_node: nd.Sort, node: nd.Aggregate,
+                           cols, exists, nbuf: int) -> ExecTable:
+        """The Sort's rows of a group buffer of ``nbuf`` entries: live
+        groups first in sort order (a stable lexicographic top-n), under a
+        LIMIT/OFFSET validity window."""
         out_types = list(node.output_types)
         sf = sort_node.sort_fields
         limit, offset = sort_node.limit, sort_node.offset
@@ -253,7 +259,8 @@ class AggExecMixin:
                              chain, src_node) -> bool:
         """The keys cover a set of source columns certified unique, and
         every aggregate has a closed single-row form."""
-        if chain or not node.keys or not source.unique_sets:
+        if (chain or not node.keys or not source.unique_sets
+                or self._mesh is not None):
             return False
         if not all(isinstance(k, ir.ColumnRef) and k.node is src_node
                    for k in node.keys):
@@ -357,7 +364,9 @@ class AggExecMixin:
         are runs of whole fragments, each up to the budget's rows (one
         fragment each under a watchdog time limit), the last one maybe
         shorter; None when the whole columns go to the device."""
-        if (source.row_mask is not None
+        # a dist scan's row mask is its shard padding: chunks re-slice
+        # the host table
+        if ((source.row_mask is not None and self._mesh is None)
                 or isinstance(source.columns, _PrunedScanColumns)
                 or not isinstance(src_node, nd.Scan)):
             return None
@@ -422,9 +431,9 @@ class AggExecMixin:
                            else ""))
 
         def build():
-            def fn(sub_cols, rows):
+            def fn(sub_cols, rows, pad_rm=None):
                 resolve, rm = self._terminal_env(src_node, sub_cols, used,
-                                                 size, chain, None, rows)
+                                                 size, chain, pad_rm, rows)
                 specs = self._build_specs(node, resolve, rows)
                 if layout is not None:
                     keys = [_broadcast(self.scalar.evaluate(k, resolve),
@@ -445,8 +454,13 @@ class AggExecMixin:
         for r0, r1 in chunks:
             sub_cols = [self._chunk_column(table.column(source.fields[i]),
                                            r0, r1) for i in used]
-            parts, cnt = fn(sub_cols, r1 - r0)
-            slots = [r.slots for r in parts]
+            if self._mesh is None:
+                parts, cnt = fn(sub_cols, r1 - r0)
+                slots = [r.slots for r in parts]
+                del parts
+            else:
+                slots, cnt = self._chunk_slots_sharded(node, fn, sub_cols,
+                                                       r1 - r0)
             if acc is None:
                 acc, counts = slots, cnt
             else:
@@ -456,7 +470,7 @@ class AggExecMixin:
                 counts = counts + cnt
             for line, rows in self._fused_rows.items():  # EXPLAIN ANALYZE
                 fused_rows[line] = fused_rows.get(line, 0) + rows
-            del sub_cols, parts  # before the next chunk's copies
+            del sub_cols  # before the next chunk's copies
             self._check_watchdog_budget()
         self._fused_rows.update(fused_rows)
         agg_cols = [gb.AggResult(list(slots)).finalize(
@@ -471,6 +485,25 @@ class AggExecMixin:
         return ExecTable(list(node.fields), list(node.output_types),
                          key_cols + agg_cols, n, counts > 0,
                          unique_sets=(frozenset(range(len(node.keys))),))
+
+    def _chunk_slots_sharded(self, node: nd.Aggregate, fn, sub_cols,
+                             rows: int):
+        """A dist session's stream chunk: split over the shards (padded
+        to the mesh), each shard's partial slots, merged by the slots'
+        rules through the mesh's collectives."""
+        from ..parallel.dist_groupby import _REDUCE
+        from ..utils import commlog
+
+        shards, rms, rps = self._split_cols(sub_cols, None, rows)
+        per = []
+        for s in range(self._mesh.size):
+            with self._on_shard(s):
+                per.append(fn([c[s] for c in shards], rps,
+                              None if rms is None else rms[s]))
+        slots = [[_REDUCE[rule]([p[0][i].slots[j] for p in per])[0]
+                  for j, rule in enumerate(_COMBINE[agg.kind])]
+                 for i, agg in enumerate(node.aggs)]
+        return slots, commlog.psum([p[1] for p in per])[0]
 
     def _chunk_column(self, col, r0: int, r1: int) -> MaskedCol:
         """Rows [r0, r1) of a table column, copied to the device."""
@@ -508,7 +541,6 @@ class AggExecMixin:
 
     def _build_specs(self, node: nd.Aggregate, resolve,
                      nrows: int) -> List[gb.AggSpec]:
-        g = self.config.exec.group_by
         specs = []
         for agg in node.aggs:
             operand = None
@@ -519,12 +551,19 @@ class AggExecMixin:
             if getattr(agg, "operand2", None) is not None:
                 operand2 = _broadcast(
                     self.scalar.evaluate(agg.operand2, resolve), nrows)
-            specs.append(gb.AggSpec(
-                agg.kind, operand, agg.type, agg.distinct, agg.arg1,
-                agg.interpolation, operand2, hll_p=g.hll_precision,
-                hll_budget=g.hll_register_budget, td_c=g.tdigest_centroids,
-                td_budget=g.tdigest_centroid_budget))
+            specs.append(self._agg_spec(agg, operand, operand2))
         return specs
+
+    def _agg_spec(self, agg, operand, operand2) -> gb.AggSpec:
+        """An aggregate's AggSpec over evaluated operands (a distributed
+        route's operands are lists of shard columns), with the session's
+        sketch sizes."""
+        g = self.config.exec.group_by
+        return gb.AggSpec(
+            agg.kind, operand, agg.type, agg.distinct, agg.arg1,
+            agg.interpolation, operand2, hll_p=g.hll_precision,
+            hll_budget=g.hll_register_budget, td_c=g.tdigest_centroids,
+            td_budget=g.tdigest_centroid_budget)
 
     # -- layout, key ranges and the group cap ------------------------------
     def _static_ranges(self, node: nd.Aggregate):

@@ -45,6 +45,7 @@ from ..utils.logger import get_channel
 from . import sort as srt
 from .agg_exec import AggExecMixin, _window
 from .codecache import CodeCache, chain_key
+from .dist_exec import DistExecMixin
 from .common import (ExecTable, _CHAIN_NODES, _IdentityKeyedCache,
                      _LazyScanColumns,
                      _PlanArtifactCache, _PrunedScanColumns, _broadcast,
@@ -58,8 +59,9 @@ from .scalar import ExecError, ScalarCompiler
 _LOG = get_channel("exec")
 
 
-class Executor(AggExecMixin, JoinExecMixin):
-    """Per-session engine on one torch device."""
+class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
+    """Per-session engine on one torch device, or on a mesh of shards
+    (``dist.enable``: ``dist_exec.py``)."""
 
     def __init__(self, schema, dicts, config: Config,
                  device: torch.device, udfs=None) -> None:
@@ -116,6 +118,25 @@ class Executor(AggExecMixin, JoinExecMixin):
         self._frag_prune_stats: Optional[Dict[str, int]] = None
         self._frag_stream_chunks: Optional[int] = None
         self._deadline: Optional[float] = None  # the watchdog's
+        # dist sessions: the mesh (None: one device), and the last
+        # distributed GROUP BY, window, join and sort routes and the
+        # retries of the last shuffling GROUP BY or sort
+        self._dist_agg_route: Optional[str] = None
+        self._dist_window_route: Optional[str] = None
+        self._dist_join_route: Optional[str] = None
+        self._dist_sort_route: Optional[str] = None
+        self._dist_retries = 0
+        self._mesh = None
+        if config.dist.enable:
+            from ..parallel import mesh as pmesh
+
+            if config.dist.multi_host:
+                raise NotImplementedError(
+                    "multi-host sessions (dist.multi_host) are not ported "
+                    "yet (ROADMAP A9b)")
+            n = config.dist.num_devices or pmesh.default_shards(device)
+            if n > 1:
+                self._mesh = pmesh.make_mesh(n, device)
 
     # ------------------------------------------------------------------
     def execute(self, dag: nd.QueryDag) -> ExecTable:
@@ -188,9 +209,12 @@ class Executor(AggExecMixin, JoinExecMixin):
             results[node.id] = out
             if self._analyze:
                 self._record_step(node, out, t0)
-            _LOG.debug1("step %s#%d: %d rows, %.1f ms%s",
+            _LOG.debug1("step %s#%d: %d rows, %.1f ms%s%s",
                         type(node).__name__, node.id, out.nrows,
                         (_time.monotonic() - t0) * 1e3,
+                        f" route={self._dist_agg_route}"
+                        if self._dist_agg_route
+                        and isinstance(node, nd.Aggregate) else "",
                         " frags={selected}/{total}".format(
                             **self._frag_prune_stats)
                         if self._frag_prune_stats else "")
@@ -209,6 +233,9 @@ class Executor(AggExecMixin, JoinExecMixin):
         nothing."""
         self._join_skip_rhs = {}
         skip: set = set()
+        self._recycled_nodes = skip
+        if self._mesh is not None:
+            return skip
         for n in order:
             if (not isinstance(n, nd.Join) or not n.key_pairs
                     or n.residual is not None):
@@ -399,9 +426,10 @@ class Executor(AggExecMixin, JoinExecMixin):
 
     def _chain_env(self, source_node: nd.Node, source_cols,
                    chain: List[nd.Node], row_mask,
-                   nrows: Optional[int] = None):
+                   nrows: Optional[int] = None, window_override=None):
         """Evaluate the Project/Filter chain; returns (env, final_node,
-        row_mask)."""
+        row_mask).  ``window_override``: window values computed by the
+        distributed route, by ``id`` of their WindowFunction."""
         env: Dict[int, List[MaskedCol]] = {source_node.id: list(source_cols)}
         if nrows is None:
             first = next((c for c in source_cols if c is not None), None)
@@ -416,9 +444,9 @@ class Executor(AggExecMixin, JoinExecMixin):
                 return cols[ref.index]
 
             if isinstance(n, nd.Project):
-                env[n.id] = [_broadcast(self.scalar.evaluate(e, resolve,
-                                                             row_mask),
-                                        nrows) for e in n.exprs]
+                env[n.id] = [_broadcast(self.scalar.evaluate(
+                    e, resolve, row_mask, window_override=window_override),
+                    nrows) for e in n.exprs]
             else:  # Filter
                 cond = self.scalar.evaluate(n.condition, resolve)
                 m = cond.data.to(torch.bool)
@@ -495,6 +523,8 @@ class Executor(AggExecMixin, JoinExecMixin):
                          n * width, live)
 
     def _exec_scan(self, node: nd.Scan) -> ExecTable:
+        if self._mesh is not None:
+            return self._exec_scan_sharded(node)
         cols = _LazyScanColumns(node.table, list(node.fields), self.device)
         return ExecTable(list(node.fields), list(node.output_types), cols,
                          node.table.nrows)
@@ -505,6 +535,10 @@ class Executor(AggExecMixin, JoinExecMixin):
         if source.nrows == 0:
             return ExecTable.empty(node.fields, node.output_types,
                                    self.device)
+        if self._mesh is not None and self._chain_has_window(chain):
+            out = self._exec_chain_dist_window(node, source, chain, src_node)
+            if out is not None:
+                return out
         has_proj = any(isinstance(n, nd.Project) for n in chain)
         used = (list(range(len(source.fields))) if not has_proj
                 else self._used_columns(src_node, chain, []))
@@ -529,7 +563,8 @@ class Executor(AggExecMixin, JoinExecMixin):
                          source.nrows, rm)
 
     def _exec_sort(self, node: nd.Sort, results) -> ExecTable:
-        source, chain, src_node = self._resolve_chain(node.inputs[0], results)
+        source, chain, src_node = self._resolve_chain_windowed(
+            node.inputs[0], results)
         if source.nrows == 0 or not node.sort_fields:
             inp = (self._exec_chain_root(node.inputs[0], results)
                    if chain else source).compact()
@@ -553,6 +588,14 @@ class Executor(AggExecMixin, JoinExecMixin):
         topn = (offset + limit
                 if limit is not None and 0 < offset + limit < nrows0
                 else nrows0)
+        if (self._mesh is not None
+                and (topn == nrows0
+                     or topn > self.config.exec.streaming_topn_max)):
+            # no small LIMIT: the range-partitioned sort over the shards
+            out = self._exec_sort_dist(node, results,
+                                       (source, chain, src_node))
+            if out is not None:
+                return out
 
         def build():
             def fn(sub_cols, row_mask):
@@ -593,7 +636,7 @@ class Executor(AggExecMixin, JoinExecMixin):
         order = np.argsort(np.asarray(strings, dtype=object))
         ranks = np.empty(len(strings), np.int32)
         ranks[order] = np.arange(len(strings), dtype=np.int32)
-        table = torch.from_numpy(ranks).to(self.device)
+        table = torch.from_numpy(ranks).to(col.data.device)
         return MaskedCol(
             table[torch.clamp(col.data.to(torch.int64), 0, len(strings) - 1)],
             col.mask)

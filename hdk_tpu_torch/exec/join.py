@@ -8,7 +8,9 @@ Two routes, as in the JAX package:
   a probe is two ``searchsorted`` passes giving each probe row its range
   of candidates, the candidate pairs are expanded (``repeat_interleave``
   to the host-synced total) and verified on the true keys, which drops
-  hash collisions;
+  hash collisions; ``expand_pairs_capped`` expands into a fixed capacity
+  without that sync and reports the true total, for the shard bodies of
+  the distributed join;
 * the **perfect join**: one integer-like key over a bounded range, unique
   on the build side: build row ids scattered into a dense table indexed
   by ``key - min_key``.  Its output reads **value tables**: each build
@@ -115,6 +117,39 @@ def expand_pairs(table: BuildTable, lo: torch.Tensor, hi: torch.Tensor,
     within = torch.arange(total, dtype=torch.int64,
                           device=lo.device) - start[l_idx]
     return l_idx, table.perm[lo[l_idx] + within]
+
+
+def expand_pairs_capped(table: BuildTable, lo: torch.Tensor,
+                        hi: torch.Tensor, cap: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """``expand_pairs`` into a fixed capacity, with no host sync (the
+    shard bodies of the distributed join).  Returns (l_idx, r_idx, live,
+    total): ``live`` marks the real pairs, slots past them are padding;
+    ``total`` (0-d) is the true candidate count, so ``total > cap`` tells
+    the caller to widen and retry.  Slot j belongs to the last probe row
+    whose run starts at or before it: a binary search of the run starts.
+    (The JAX package marks the run starts with a scatter-add and sums
+    them up; on the card every empty run adds to one slot, and a shard's
+    padding rows are all empty runs.)"""
+    dev = lo.device
+    n = lo.shape[0]
+    j = torch.arange(cap, dtype=torch.int64, device=dev)
+    if n == 0 or table.perm.shape[0] == 0:
+        zero = torch.zeros((cap,), dtype=torch.int64, device=dev)
+        total = (hi - lo).sum() if n else torch.zeros(
+            (), dtype=torch.int64, device=dev)
+        return zero, zero, torch.zeros((cap,), dtype=torch.bool,
+                                       device=dev), total
+    counts = hi - lo
+    offsets = torch.cumsum(counts, 0)  # inclusive
+    excl = offsets - counts
+    total = offsets[-1]
+    l_idx = torch.clamp(torch.searchsorted(excl, j, right=True) - 1, 0,
+                        n - 1)
+    pos = lo[l_idx] + (j - excl[l_idx])
+    r_idx = table.perm[torch.clamp(pos, 0, table.perm.shape[0] - 1)]
+    return l_idx, r_idx, j < total, total
 
 
 def verify_pairs(build_keys: Sequence[MaskedCol],

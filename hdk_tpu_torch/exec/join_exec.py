@@ -116,7 +116,8 @@ class JoinExecMixin:
         signature of the build subtree, both sides' key expressions (the
         probe key types drive promotion and dictionary translation of the
         build keys), the join type and the data epoch."""
-        if not node.key_pairs or not self.config.cache.enable_hashtable_cache:
+        if (not node.key_pairs or self._mesh is not None
+                or not self.config.cache.enable_hashtable_cache):
             return None
         sig_ids = {node.inputs[0].id: "L", node.inputs[1].id: "R"}
         pairs = ";".join(f"{expr_sig(l, sig_ids)}={expr_sig(r, sig_ids)}"
@@ -206,6 +207,10 @@ class JoinExecMixin:
     def _exec_join(self, node: nd.Join, results) -> ExecTable:
         if not node.key_pairs:
             return self._exec_loop_join(node, results)
+        if self._mesh is not None:
+            out = self._exec_join_dist(node, results)
+            if out is not None:
+                return out
         return self._exec_join_single(node, results)
 
     def _exec_join_single(self, node: nd.Join, results) -> ExecTable:
@@ -321,7 +326,8 @@ class JoinExecMixin:
             self._join_route = "perfect(recycled)"
             return out
 
-        if self._feedback.enabled and lhs.nrows >= _TUNE_MIN_ROWS:
+        if (self._feedback.enabled and self._mesh is None
+                and lhs.nrows >= _TUNE_MIN_ROWS):
             # the route A/B: each candidate runs twice, the second run
             # timed with its demanded outputs computed and the device
             # synchronized; later runs take the fastest
@@ -712,7 +718,8 @@ class JoinExecMixin:
         cons = (self._consumers or {}).get(node.id, [])
         if cons and all(c.startswith("join") for c in cons):
             return True
-        if not lhs.unique_sets or node.residual is not None:
+        if (not lhs.unique_sets or node.residual is not None
+                or self._mesh is not None):  # the identity pass: one device
             return False
         direct = (self._direct_consumers or {}).get(node.id, [])
         if not direct:

@@ -178,20 +178,24 @@ class ScalarCompiler:
         return torch.tensor(value, dtype=dtype, device=self.device)
 
     def evaluate(self, expr: ir.Expr, resolver: Resolver,
-                 row_mask: Optional[torch.Tensor] = None) -> MaskedCol:
+                 row_mask: Optional[torch.Tensor] = None,
+                 window_override=None) -> MaskedCol:
         """``row_mask``: the step's live rows, which window functions
         read (a window after a Filter sees only the surviving rows).
-        The JAX package's ``window_override`` (precomputed windows of the
-        distributed route) belongs to multi-device sessions and is not
-        ported (ROADMAP A9)."""
+        ``window_override``: {id(WindowFunction): MaskedCol}, window
+        values the distributed route computed, used in their place."""
         cache: Dict[int, MaskedCol] = {}
 
         def ev(e: ir.Expr) -> MaskedCol:
             got = cache.get(id(e))
             if got is None:
-                got = (self._window(e, ev, row_mask)
-                       if isinstance(e, ir.WindowFunction)
-                       else self._eval(e, ev, resolver))
+                if isinstance(e, ir.WindowFunction):
+                    got = (window_override[id(e)]
+                           if window_override is not None
+                           and id(e) in window_override
+                           else self._window(e, ev, row_mask))
+                else:
+                    got = self._eval(e, ev, resolver)
                 cache[id(e)] = got
             return got
 

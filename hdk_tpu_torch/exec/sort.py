@@ -25,7 +25,9 @@ from .masked import MaskedCol
 def sort_keys_int64(cols: Sequence[MaskedCol], descs: Sequence[bool],
                     nulls_first: Sequence[bool]) -> List[torch.Tensor]:
     """Ascending int64 keys for a lexicographic sort: per column an
-    optional null flag (0 sorts first) and the orderable value."""
+    optional null flag (0 sorts first) and the orderable value, 0 under a
+    NULL, so NULLs tie and the later keys order them (the JAX package
+    pins them to one sentinel)."""
     keys = []
     for col, desc, nf in zip(cols, descs, nulls_first):
         key = _orderable_int64(col.data)
@@ -33,6 +35,7 @@ def sort_keys_int64(cols: Sequence[MaskedCol], descs: Sequence[bool],
             key = ~key
         if col.mask is not None:
             keys.append((col.mask if nf else ~col.mask).to(torch.int8))
+            key = torch.where(col.mask, key, 0)
         keys.append(key)
     return keys
 

@@ -13,8 +13,9 @@ estimator and cluster rules this follows to the bit).
 torch has no logical right shift and no unsigned int64 arithmetic:
 ``_lsr`` masks the sign fill off an arithmetic shift, and the splitmix
 constants are two's-complement int64 (multiplication wraps).  The merges
-of per-shard digests (``tdigest_merge_*``) belong to multi-device
-aggregation (ROADMAP A9).
+of per-shard digests (``tdigest_merge_*``) serve multi-device
+aggregation: centroids of one group re-sorted by mean and re-clustered by
+their cumulative weight, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -185,6 +186,60 @@ def tdigest_build(data: torch.Tensor, valid, gid: torch.Tensor, n: int,
     cid = torch.where(sg < n, sg * c + cl, n * c)
     ones = torch.where(sg < n, 1.0, 0.0).to(torch.float64)
     return _cluster_reduce(sv, ones, cid, n, c)
+
+
+def tdigest_merge_flat(means_flat: torch.Tensor, weights_flat: torch.Tensor,
+                       gid_flat: torch.Tensor, starts_el: torch.Tensor,
+                       ends_el: torch.Tensor, n: int, c: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-cluster flattened centroids into (n, c) digests.  ``gid_flat``
+    is each centroid's group (>= n: dead), each group's centroids
+    contiguous over the spans [starts_el, ends_el); zero-weight
+    centroids add nothing."""
+    from ..exec.groupby import _orderable_int64
+
+    g = gid_flat.to(torch.int64)
+    perm = lexsort([g, _orderable_int64(means_flat)])
+    sg, sm, sw = g[perm], means_flat[perm], weights_flat[perm]
+    cumw = torch.cumsum(sw, 0)
+    cpad = torch.cat([torch.zeros((1,), dtype=cumw.dtype,
+                                  device=cumw.device), cumw])
+    live = sg < n
+    last = max(starts_el.shape[0] - 1, 0)
+    sgc = torch.clamp(torch.clamp(sg, max=n), max=last)
+    prefix = cpad[starts_el][sgc]
+    total_w = (cpad[ends_el] - cpad[starts_el])[sgc]
+    mid = cumw - prefix - sw * 0.5
+    cl = _td_cluster(mid / torch.clamp(total_w, min=1e-300), c)
+    cid = torch.where(live, torch.clamp(sg, max=n) * c + cl, n * c)
+    return _cluster_reduce(sm, torch.where(live, sw, 0.0), cid, n, c)
+
+
+def tdigest_merge_rows(means2d: torch.Tensor, weights2d: torch.Tensor,
+                       gid_sorted: torch.Tensor, row_starts: torch.Tensor,
+                       row_ends: torch.Tensor, n: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row digests of key-sorted rows merged into per-group digests:
+    (R, c) rows grouped contiguously by ``gid_sorted`` (dead rows carry
+    zero weights), (n,) row spans per group -> (n, c)."""
+    _r, c = means2d.shape
+    gid_flat = torch.repeat_interleave(gid_sorted.to(torch.int64), c)
+    return tdigest_merge_flat(means2d.reshape(-1), weights2d.reshape(-1),
+                              gid_flat, row_starts.to(torch.int64) * c,
+                              row_ends.to(torch.int64) * c, n, c)
+
+
+def tdigest_merge_gathered(means2d: torch.Tensor, weights2d: torch.Tensor,
+                           c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K digests per group side by side, (n, K*c) -> (n, c): the combine
+    of the dense distributed route after an all_gather."""
+    n, k = means2d.shape
+    dev = means2d.device
+    gid_flat = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int64, device=dev), k)
+    el = torch.arange(n + 1, dtype=torch.int64, device=dev) * k
+    return tdigest_merge_flat(means2d.reshape(-1), weights2d.reshape(-1),
+                              gid_flat, el[:-1], el[1:], n, c)
 
 
 def tdigest_quantile(means2d: torch.Tensor, weights2d: torch.Tensor,

@@ -321,8 +321,8 @@ class Table:
             raise ValueError("table must have at least one column")
         if process_local:
             raise NotImplementedError(
-                "process-local tables need multi-device sessions "
-                "(ROADMAP A9)")
+                "process-local tables need multi-host sessions "
+                "(ROADMAP A9b)")
         nrows = len(columns[0])
         if any(len(c) != nrows for c in columns):
             raise ValueError("ragged columns")

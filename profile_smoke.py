@@ -3,7 +3,7 @@
 chip_smoke.py.
 
     python3 profile_smoke.py [--out FILE.json] [--top N] [--scale F]
-                             [--device cuda|cpu]
+                             [--device cuda|cpu] [--dist SHARDS]
 
 Runs HN1 and HN2 (high-NDV group-by, 100M rows), holistic Q1-Q3 (10M
 rows), J1 (100M probe rows into a 10M-row build), TPC-H Q3 (60M
@@ -15,7 +15,9 @@ host wall time of the profiled run, the device busy time (the union of
 the kernels' intervals), the idle share ``1 - busy / wall``, and the top
 kernels and operators by device time; ``--out`` writes the same as JSON.
 ``--scale`` shrinks the row and key counts (a rehearsal on the CPU:
-``--device cpu --scale 0.01``, where no kernel is traced).  Prints the
+``--device cpu --scale 0.01``, where no kernel is traced).  ``--dist N``
+profiles phase 11's queries instead (taxi Q2, W1, HN1 and J1 in a
+session of N shards on the one device).  Prints the
 card's name and power limit first; imports neither jax nor pandas.
 """
 
@@ -114,6 +116,8 @@ def main() -> None:
     ap.add_argument("--scale", type=float, default=1.0,
                     help="fraction of chip_smoke.py's rows and keys")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--dist", type=int, default=0,
+                    help="profile phase 11's queries on this many shards")
     args = ap.parse_args()
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -121,10 +125,15 @@ def main() -> None:
         print(cs.gpu_line(), flush=True)
     import hdk_tpu_torch
 
-    hdk = hdk_tpu_torch.HDK(device=args.device)
-    results = []
-    for run in (_sort_queries, _join_queries, _window_queries):
-        results += run(hdk, hdk_tpu_torch, args)
+    if args.dist:
+        hdk = hdk_tpu_torch.HDK(device=args.device, **{
+            "dist.enable": True, "dist.num_devices": args.dist})
+        results = _dist_queries(hdk, hdk_tpu_torch, args)
+    else:
+        hdk = hdk_tpu_torch.HDK(device=args.device)
+        results = []
+        for run in (_sort_queries, _join_queries, _window_queries):
+            results += run(hdk, hdk_tpu_torch, args)
     cs.check("jax" not in sys.modules, "jax was imported")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -201,6 +210,36 @@ def _window_queries(hdk, hdk_mod, args) -> list:
         f"W3 ({lineitem['l_orderkey'].size} lineitem rows)",
         lambda: hdk.sql(cs.W3), args.top))
     hdk.drop_table("lineitem3")
+    return results
+
+
+def _dist_queries(hdk, hdk_mod, args) -> list:
+    """Phase 11's taxi Q2 (dense_psum), W1 (dist_window), HN1
+    (two_phase) and J1 (partitioned join) in the dist session."""
+    t = hdk_mod.types
+    rows = int(cs.TAXI_ROWS * args.scale)
+    ht = hdk.import_pydict(cs.gen_taxi(rows), name="trips", schema={
+        "pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)})
+    results = [
+        profile_query(f"dist taxi Q2 ({rows} rows)", lambda: ht.agg(
+            "passenger_count", "avg(total_amount)").run(), args.top),
+        profile_query(f"dist W1 ({rows} rows)",
+                      lambda: hdk.sql(cs.DIST_W1), args.top)]
+    hdk.drop_table("trips")
+    ndv_rows = int(cs.HIGH_NDV_ROWS * args.scale)
+    ht = hdk.import_pydict(cs.gen_high_ndv(
+        ndv_rows, int(cs.HIGH_NDV_KEYS * args.scale)), name="ndv_t")
+    results.append(profile_query(
+        f"dist HN1 ({ndv_rows} rows)",
+        lambda: ht.agg("k", "count", "sum(v)").run(), args.top))
+    hdk.drop_table("ndv_t")
+    trips, payments = cs.gen_join(args.scale)
+    tj = hdk.import_pydict(trips, name="trips_j")
+    pj = hdk.import_pydict(payments, name="payments_j")
+    results.append(profile_query(
+        f"dist J1 ({trips['k'].size} x {payments['k'].size} rows)",
+        lambda: tj.join(pj, "k", "k").agg([], "count", "sum(fee)").run(),
+        args.top))
     return results
 
 

@@ -683,3 +683,62 @@ def test_offload_and_clear_free_device_memory(cuda):
     fin = st.finish().to_numpy()
     assert fin["count"].sum() == len(k)
     assert allocated() - m0 <= (k.nbytes + v.nbytes) // 4
+
+
+def test_dist_session_on_one_card(cuda, monkeypatch):
+    """A 4-shard session on one card gives the single-device session's
+    answers: a dense GROUP BY (K1 and K4 once per shard), a shuffled
+    GROUP BY, a sort and a partitioned join, no plain version on a CUDA
+    tensor."""
+    rng = np.random.default_rng(21)
+    n = 400_003  # not a multiple of 4: the scans pad
+    tables = {
+        "f": {"k": rng.integers(0, 60, n), "big": rng.integers(0, 10**9, n),
+              "v": rng.normal(size=n), "j": rng.integers(0, 50_000, n)},
+        "d": {"j": rng.permutation(60_000)[:40_000],
+              "w": rng.integers(-100, 100, 40_000)},
+    }
+    queries = [
+        ("SELECT k, COUNT(*), SUM(v), MIN(big) FROM f GROUP BY k",
+         "dense_psum"),
+        ("SELECT k, COUNT(DISTINCT big % 1000), MEDIAN(v) FROM f GROUP BY k",
+         None),
+        ("SELECT big, COUNT(*) FROM f GROUP BY big", "two_phase"),
+        ("SELECT big, v FROM f ORDER BY v DESC, big", None),
+        ("SELECT f.k, COUNT(*), SUM(w) FROM f JOIN d ON f.j = d.j "
+         "GROUP BY f.k", "dense_psum"),
+    ]
+    out = []
+    for dist in (False, True):
+        cfg = ({"dist.enable": True, "dist.num_devices": 4,
+                "dist.broadcast_join_threshold": 1000} if dist else {})
+        if dist:
+            _refuse_plain_versions(monkeypatch)
+            hist.reset_launches()
+        hdk = hdk_tpu_torch.HDK(device="cuda", **cfg)
+        for name, data in tables.items():
+            hdk.import_pydict(data, name=name)
+        got = []
+        for sql, route in queries:
+            got.append(hdk.sql(sql).to_numpy())
+            if dist:
+                assert route is None or (
+                    hdk._executor._dist_agg_route == route), sql
+        if dist:
+            mesh = hdk._executor._mesh
+            assert [d.type for d in mesh.devices] == ["cuda"] * 4
+            assert hdk._executor._dist_join_route == "partitioned"
+            launched = hist.launches()
+            assert launched["count_hist"] >= 4
+            assert launched["groupby_sums"] >= 4
+        out.append(got)
+    _same_results([sql for sql, _ in queries], out)
+
+
+def test_dist_cuda_session_without_a_card_raises(monkeypatch):
+    """``device="cuda"`` with no card raises: a distributed session never
+    builds a CPU mesh in its place."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hdk_tpu_torch.HDK(device="cuda", **{"dist.enable": True,
+                                            "dist.num_devices": 4})

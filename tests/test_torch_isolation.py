@@ -119,8 +119,9 @@ def test_streaming_and_interop_load_neither_pandas_nor_jax():
     assert got["substr"] == ["bc1", "bc2"]
 
 
-# public calls of hdk_tpu's facade the port leaves to multi-device
-# sessions (ROADMAP A9)
+# public calls and parameters of hdk_tpu's facade the port leaves to
+# multi-host sessions (ROADMAP A9b); the port's ``import_pydict`` takes
+# ``process_local`` only to raise
 _A9_ONLY = {
     # process-local ingest shards a table across hosts
     "process_local",
@@ -152,13 +153,68 @@ def test_facade_parity():
                 continue
             want = [p for p in inspect.signature(a).parameters
                     if p not in _A9_ONLY]
-            got = list(inspect.signature(b).parameters)
+            got = [p for p in inspect.signature(b).parameters
+                   if p not in _A9_ONLY]
             if name == "__init__":
                 got.remove("device")
             assert got == want, (port.__name__, name, got, want)
     ref_params = inspect.signature(hdk_tpu.HDK.import_pydict).parameters
     assert "process_local" in ref_params
     assert hasattr(hdk_tpu.HDK, "_unify_process_local_dicts")
+
+
+def test_multi_host_calls_raise_naming_a9b():
+    import hdk_tpu_torch
+
+    with pytest.raises(NotImplementedError, match="A9b"):
+        hdk_tpu_torch.HDK(device="cpu", **{"dist.enable": True,
+                                           "dist.multi_host": True})
+    hdk = hdk_tpu_torch.HDK(device="cpu", **{"dist.enable": True,
+                                             "dist.num_devices": 2})
+    with pytest.raises(NotImplementedError, match="A9b"):
+        hdk.import_pydict({"k": [1, 2]}, name="pl", process_local=True)
+
+
+_DIST_PROBE = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import hdk_tpu_torch
+from hdk_tpu_torch.parallel import (dist_groupby, dist_join, dist_sort,
+                                    dist_window, link_model, mesh, shuffle)
+from hdk_tpu_torch.utils import commlog
+hdk = hdk_tpu_torch.HDK(device="cpu", **{"dist.enable": True,
+                                         "dist.num_devices": 4})
+rng = np.random.default_rng(0)
+hdk.import_pydict({"k": rng.integers(0, 500, 1001),
+                   "v": rng.integers(0, 9, 1001)}, name="t")
+with commlog.capture() as rec:
+    out = hdk.sql("SELECT k, COUNT(DISTINCT v) AS c FROM t GROUP BY k "
+                  "ORDER BY k").to_numpy()
+port_dir = os.path.join(sys.argv[1], "hdk_tpu_torch") + os.sep
+mods = [dist_groupby, dist_join, dist_sort, dist_window, link_model, mesh,
+        shuffle, commlog]
+print(json.dumps({
+    "modules": sorted(m for m in sys.modules
+                      if m in ("jax", "hdk_tpu")
+                      or m.startswith(("jax.", "jaxlib", "hdk_tpu."))),
+    "own": all(m.__file__.startswith(port_dir) for m in mods),
+    "route": hdk._executor._dist_agg_route,
+    "ops": sorted({r["op"] for r in rec}),
+    "groups": len(out["k"]),
+}))
+"""
+
+
+def test_dist_session_loads_neither_jax_nor_hdk_tpu():
+    """A 4-shard session on the CPU, in a fresh interpreter: the port's
+    own parallel/ and commlog modules, no jax, no hdk_tpu."""
+    got = _run(_DIST_PROBE)
+    assert got["modules"] == []
+    assert got["own"]
+    assert got["route"] in ("shuffled", "distinct_split")
+    assert "all_to_all" in got["ops"]
+    assert got["groups"] > 400
 
 
 def _run(code):
@@ -236,6 +292,8 @@ _FORBIDDEN = [
                 r"__path__).*\bhdk_tpu\b(?!_).*$", re.M),
      "hdk_tpu on an import path"),
     (re.compile(r"^\s*__path__\s*=", re.M), "a __path__ rewrite"),
+    (re.compile(r"^\s*(import\s+jax\b|from\s+jax[\s.])", re.M),
+     "an import of jax"),
 ]
 
 
@@ -253,10 +311,11 @@ def test_forbidden_patterns_catch_imports():
            "from hdk_tpu import types", "    import bench",
            "from bench_suite import gen_lineitem",
            'sys.path.insert(0, os.path.join(ROOT, "hdk_tpu"))',
-           "__path__ = _overlay(__file__)"]
+           "__path__ = _overlay(__file__)", "import jax.numpy as jnp",
+           "from jax import shard_map"]
     good = ["import hdk_tpu_torch", "from hdk_tpu_torch.kernels import hist",
             '"replaces": "hdk_tpu/ops/pallas_hist2.py:89"',
-            "import benchmark_helpers"]
+            "import benchmark_helpers", "import jaxtyping_free"]
     hit = lambda line: any(p.search(line) for p, _ in _FORBIDDEN)
     assert all(hit(b) for b in bad), [b for b in bad if not hit(b)]
     assert not any(hit(g) for g in good), [g for g in good if hit(g)]
