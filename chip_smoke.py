@@ -82,11 +82,29 @@ Phases, each printed as it runs:
      IN subquery (broadcast), each on its expected route and equal to
      its numpy oracle or else to the single-device result; per query the
      routes, warm ms beside the single-device warm ms, retries and
-     ``commlog.summarize`` of its capture.
+     ``commlog.summarize`` of its capture;
+ 12. multi-host: two ranks of this script (``--rank R --address
+     HOST:PORT``), fresh processes on the one card, joined by
+     ``torch.distributed`` over gloo on 127.0.0.1 with operands staged
+     through pinned host memory, 2 of the 4 shards each; every table
+     process-local (each rank imports its own rows, made from the
+     seeds): taxi Q2 and Q3 sorted (100M rows, 50/50), the nulls GROUP BY
+     (10M), a GROUP BY on a string column split 40/60 (10M rows; the
+     ranks' dictionaries unify at ingest), HN1 (``two_phase``), J5's IN
+     subquery (broadcast, process-local fact x replicated dim) and J1
+     (partitioned); each on its route and equal to its numpy oracle on
+     both ranks, with phase 11's bytes per shard where the sizes agree;
+     per query the warm ms of each rank beside phase 11's 4-shard and
+     one-device warm ms, the transport's staged bytes and ms and each
+     rank's peak device memory.  ``--phase12`` runs phase 12 alone after
+     the build (``--sizes '{"hn1_rows": ...}'`` cuts a size), without
+     the contract lines.
 Phases 5-6 are the sort route, phase 7 the join path, phase 8 the
-window path, phase 9 the controls, phase 10 the facade and phase 11 the
-multi-device path: each phase's kernel launches count apart from the
-others', every kernel must launch on phases 4, 5-6 and 11, the kernels
+window path, phase 9 the controls, phase 10 the facade and phases 11
+and 12 the multi-device and multi-host paths: each phase's kernel
+launches count apart from the others' (phase 12's inside its ranks,
+summed by the parent), every kernel must launch on phases 4, 5-6, 11
+and 12, the kernels
 of TPC-H Q3 on phase 7, W3's (K1 and K4) on phase 8, the streamed Q1's
 (K1, K3 and K4) on phase 9, and S1's (K1, K3 and K4) and U1's (K1 and
 K4) on phase 10.  Each phase ends with
@@ -2220,10 +2238,12 @@ def dist_phase(hdk_mod, card, hist, device="cuda", shards=DIST_SHARDS,
     distributed route and equal its numpy oracle or the single-device
     result (a query without an oracle).  Kernel launches count on the
     distributed runs only, reset before each and read after it; returns
-    their sum per kernel."""
+    their sum per kernel and, per query, its warm ms in both sessions and
+    its ``commlog.summarize``."""
     from hdk_tpu_torch.utils import commlog
 
     t_phase = time.perf_counter()
+    stats = {}
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
     solo = hdk_mod.HDK(device=device)
@@ -2284,6 +2304,8 @@ def dist_phase(hdk_mod, card, hist, device="cuda", shards=DIST_SHARDS,
         ops = [r for r in rec if not r.get("gather")]
         gathers = [r for r in rec if r.get("gather")]
         summary = commlog.summarize(ops, shards)
+        stats[label] = {"warm_ms": dist_ms, "single_device_warm_ms": solo_ms,
+                        "commlog": summary, "rows": rows}
         log(f"dist {label}: routes={got_routes} rows={rows} cold_s={cold!r} "
             f"warm_ms={dist_ms!r} single_device_warm_ms={solo_ms!r} "
             f"retries={retries} commlog={json.dumps(summary)} "
@@ -2450,6 +2472,394 @@ def dist_phase(hdk_mod, card, hist, device="cuda", shards=DIST_SHARDS,
             if torch.cuda.is_available() else None)
     log(f"multi-device path: kernel launches {totals}; phase 11 in "
         f"{time.perf_counter() - t_phase:.1f} s, peak_device_bytes={peak}")
+    return totals, stats
+
+
+# -- phase 12: a multi-host session, two ranks on the one card ----------
+
+MH_WORLD = 2
+MH_SHARDS = 4  # global: two a rank
+MH_STRING_ROWS = 10_000_000
+MH_STRING_SPLIT = 0.4  # rank 0's share of the string table
+# HN1 and J1 cut to 10M rows: at phase 11's 100M they take 3.3 and 8.1
+# s a warm run over the staged gloo transport on one H100, and phase 12
+# then outruns its ~120 s budget (PERF.md §5); J5 keeps 100M probe rows
+MH_HN1_ROWS = 10_000_000
+MH_J5_SCALE = 1.0
+MH_J1_SCALE = 0.1
+MH_TIMEOUT_S = 900
+MH_STRING_Q = ("SELECT city, COUNT(*) AS c, SUM(amt) AS s FROM mstr "
+               "GROUP BY city ORDER BY city")
+
+
+def mh_part(rows: int, rank: int, share0: float = 0.5) -> slice:
+    """Rank ``rank``'s rows of a table split ``share0`` / the rest."""
+    cut = int(rows * share0)
+    return slice(0, cut) if rank == 0 else slice(cut, rows)
+
+
+def gen_cities(rows: int):
+    """A string key of 1000 city names (zipf-skewed) and an amount."""
+    rng = np.random.default_rng(37)
+    names = np.asarray([f"city_{i:04d}" for i in range(1000)])
+    idx = np.minimum(rng.zipf(1.2, rows), 1000) - 1
+    return {"city": names[idx], "amt": rng.integers(1, 100, rows)}
+
+
+MH_SIZES = {"taxi_rows": TAXI_ROWS, "nulls_rows": NULLS_ROWS,
+            "string_rows": MH_STRING_ROWS, "hn1_rows": MH_HN1_ROWS,
+            "j5_scale": MH_J5_SCALE, "j1_scale": MH_J1_SCALE}
+
+
+def mh_rank(rank: int, address: str, device: str = "cuda",
+            sizes=None, config=None) -> dict:
+    """One rank of phase 12 (run as ``chip_smoke.py --rank R --address
+    HOST:PORT``): a multi-host session of 2 local shards of 4, its tables
+    process-local (each rank imports its own rows, made from the seeds
+    like every phase's), each query cold then three times warm, checked
+    against numpy on this rank.  Returns the per-query report, this
+    rank's kernel launches over the session's runs and its peak device
+    memory.  ``sizes`` overrides ``MH_SIZES``; ``config`` adds session
+    settings."""
+    sz = {**MH_SIZES, **(sizes or {})}
+    taxi_rows, nulls_rows = sz["taxi_rows"], sz["nulls_rows"]
+    string_rows, hn1_rows = sz["string_rows"], sz["hn1_rows"]
+    cuda = device.startswith("cuda")
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import hdk_tpu_torch
+    from hdk_tpu_torch.kernels import hist
+    from hdk_tpu_torch.utils import commlog
+
+    hdk = hdk_tpu_torch.HDK(device=device, **{
+        "dist.enable": True, "dist.multi_host": True,
+        "dist.coordinator_address": address,
+        "dist.num_processes": MH_WORLD, "dist.process_id": rank,
+        "dist.num_devices": MH_SHARDS, "dist.timeout_s": MH_TIMEOUT_S,
+        **(config or {})})
+    ex = hdk._executor
+    mesh = ex._mesh
+    tr = commlog.transport()
+    check(mesh.size == MH_SHARDS and mesh.world == MH_WORLD
+          and mesh.local_size == MH_SHARDS // MH_WORLD,
+          f"rank {rank}: mesh {mesh.size}/{mesh.world}")
+    hist.reset_launches()
+    totals = {k: 0 for k in hist.launches()}
+    report = []
+    t = hdk_tpu_torch.types
+
+    def counted(run):
+        hist.reset_launches()
+        res = run()
+        res.block()
+        for k, n in hist.launches().items():
+            totals[k] += n
+        return res
+
+    def query(label, run, rows, routes, oracle):
+        with commlog.capture() as rec:
+            t0 = time.perf_counter()
+            out = counted(run).to_numpy()
+            cold = time.perf_counter() - t0
+        got = {a: getattr(ex, a) for a in routes}
+        retries = ex._dist_retries
+        for attr, want in routes.items():
+            check(got[attr] == want,
+                  f"rank {rank} {label}: {attr}={got[attr]}, want {want}")
+        oracle(out)
+        times, staged, staged_ms = [], [], []
+        for _ in range(3):
+            tr.reset_stats()
+            t0 = time.perf_counter()
+            counted(run)
+            times.append(time.perf_counter() - t0)
+            st = tr.stats()
+            staged.append(st["staged_bytes"])
+            staged_ms.append(st["ms"])
+        ops = [r for r in rec if not r.get("gather")]
+        gathers = [r for r in rec if r.get("gather")]
+        report.append({
+            "label": label, "rows": rows, "routes": got, "retries": retries,
+            "cold_s": cold, "warm_ms": statistics.median(times) * 1e3,
+            "commlog": commlog.summarize(ops, MH_SHARDS),
+            "gathers": len(gathers),
+            "gather_bytes_per_shard": sum(r["bytes_per_device"]
+                                          for r in gathers),
+            "staged_bytes_per_run": statistics.median(staged),
+            "staged_ms_per_run": statistics.median(staged_ms)})
+        print(f"rank {rank} {label}: {json.dumps(report[-1])}",
+              file=sys.stderr, flush=True)
+
+    # taxi Q2 (dense_psum; K1 + K4) and Q3 sorted (the fused sort), the
+    # 100M rows split 50/50
+    data = gen_taxi(taxi_rows)
+    part = mh_part(taxi_rows, rank)
+    ts_schema = {"pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)}
+    hdk.import_pydict({k: v[part] for k, v in data.items()}, name="trips",
+                      schema=ts_schema, process_local=True)
+    pc = data["passenger_count"].astype(np.int64)
+
+    def q2_oracle(out):
+        cnt = np.bincount(pc, minlength=9)
+        sums = np.bincount(pc, weights=data["total_amount"].astype(
+            np.float64), minlength=9)
+        equal(out["passenger_count"], np.arange(9), "mh taxi_q2 keys")
+        close(out["total_amount_avg"], sums / cnt, 1e-6, "mh taxi_q2 avg")
+
+    query("taxi_q2", lambda: hdk.scan("trips").agg(
+        "passenger_count", "avg(total_amount)").run(), taxi_rows,
+        {"_dist_agg_route": "dense_psum"}, q2_oracle)
+
+    def q3_run():
+        ht = hdk.scan("trips")
+        return ht.agg(["passenger_count",
+                       ht["pickup_datetime"].extract("year").name("y")],
+                      "count").sort(("count", "desc")).run()
+
+    def q3_oracle(out):
+        uniq, inv = group_ids(pc, years(data["pickup_datetime"]))
+        counts = np.bincount(inv)
+        order = np.argsort(-counts, kind="stable")
+        equal(np.stack([out["passenger_count"], out["y"]], 1), uniq[order],
+              "mh taxi_q3 keys")
+        equal(out["count"], counts[order], "mh taxi_q3 count")
+
+    query("taxi_q3_sorted", q3_run, taxi_rows,
+          {"_dist_agg_route": "dense_psum_fused_sort"}, q3_oracle)
+    hdk.drop_table("trips")
+    del data, pc
+
+    # the nulls GROUP BY (K2), 10M rows split 50/50
+    nulls = gen_nulls(nulls_rows)
+    part = mh_part(nulls_rows, rank)
+    hdk.import_pydict({k: v[part] for k, v in nulls.items()}, name="t",
+                      process_local=True)
+    g = nulls["g"]
+
+    def nulls_oracle(out):
+        cols = list(out.values())
+        xv = ~np.ma.getmaskarray(nulls["x"])
+        yv = ~np.ma.getmaskarray(nulls["y"])
+        xsum = np.zeros(1000, np.int64)
+        np.add.at(xsum, g[xv], nulls["x"].data[xv])
+        ysum = np.bincount(g[yv], weights=nulls["y"].data[yv],
+                           minlength=1000)
+        equal(cols[0], np.arange(1000), "mh nulls keys")
+        equal(cols[1], np.bincount(g, minlength=1000), "mh nulls count(*)")
+        equal(cols[2], np.bincount(g[xv], minlength=1000),
+              "mh nulls count(x)")
+        equal(cols[3], xsum, "mh nulls sum(x)")
+        close(cols[4], ysum / np.bincount(g[yv], minlength=1000), 1e-9,
+              "mh nulls avg(y)")
+
+    query("nulls", lambda: hdk.sql(NULLS_Q), nulls_rows,
+          {"_dist_agg_route": "dense_psum_fused_sort"}, nulls_oracle)
+    hdk.drop_table("t")
+    del nulls, g
+
+    # a string GROUP BY over a process-local string column split 40/60:
+    # each rank's dictionary joins the rank-ordered union at ingest
+    cities = gen_cities(string_rows)
+    part = mh_part(string_rows, rank, MH_STRING_SPLIT)
+    t0 = time.perf_counter()
+    hdk.import_pydict({k: v[part] for k, v in cities.items()}, name="mstr",
+                      process_local=True)
+    ingest_s = time.perf_counter() - t0
+
+    def string_oracle(out):
+        names, inv = np.unique(cities["city"], return_inverse=True)
+        equal(np.asarray(out["city"], dtype=str), names, "mh string keys")
+        equal(out["c"], np.bincount(inv), "mh string count")
+        equal(out["s"], np.bincount(inv, weights=cities["amt"]).astype(
+            np.int64), "mh string sum")
+
+    query("string_groupby", lambda: hdk.sql(MH_STRING_Q), string_rows,
+          {"_dist_agg_route": "dense_psum_fused_sort"}, string_oracle)
+    report[-1]["ingest_s"] = ingest_s
+    hdk.drop_table("mstr")
+    del cities
+
+    # HN1 on the two-phase route (K3 + K4)
+    hn = gen_high_ndv(hn1_rows, HIGH_NDV_KEYS)
+    part = mh_part(hn1_rows, rank)
+    hdk.import_pydict({k: v[part] for k, v in hn.items()}, name="ndv_t",
+                      process_local=True)
+    counts = np.bincount(hn["k"], minlength=HIGH_NDV_KEYS)
+    sums = np.bincount(hn["k"], weights=hn["v"], minlength=HIGH_NDV_KEYS)
+    present = np.flatnonzero(counts)
+
+    def hn1_oracle(out):
+        order = np.argsort(out["k"])
+        equal(out["k"][order], present, "mh HN1 keys")
+        equal(out["count"][order], counts[present], "mh HN1 count")
+        equal(out["v_sum"][order], sums[present].astype(np.int64),
+              "mh HN1 sum(v)")
+
+    query("HN1", lambda: hdk.scan("ndv_t").agg("k", "count",
+                                               "sum(v)").run(),
+          hn1_rows, {"_dist_agg_route": "two_phase"}, hn1_oracle)
+    hdk.drop_table("ndv_t")
+    del hn, counts, sums, present
+    if cuda:
+        torch.cuda.empty_cache()
+
+    def join_tables(scale):
+        trips, payments = gen_join(scale, seed=11)
+        part = mh_part(trips["k"].size, rank)
+        hdk.import_pydict({k: v[part] for k, v in trips.items()},
+                          name="trips_j", process_local=True)
+        hdk.import_pydict(payments, name="payments_j")
+        return trips, payments
+
+    # J5's IN subquery (broadcast: process-local fact x replicated dim,
+    # the dim's 1.35M filtered rows below the broadcast threshold)
+    trips, payments = join_tables(sz["j5_scale"])
+
+    def j5_oracle(out):
+        count, amt = out.values()
+        in_set = np.zeros(payments["k"].size, bool)
+        in_set[payments["k"][payments["fee"].astype(np.float64) > 4.0]] = True
+        sel = in_set[trips["k"]]
+        equal(count, [int(sel.sum())], "mh J5 count")
+        close(amt, [trips["amt"][sel].astype(np.float64).sum()], 1e-6,
+              "mh J5 sum")
+
+    query("J5_broadcast", lambda: hdk.sql(J5_IN), trips["k"].size,
+          {"_dist_join_route": "broadcast"}, j5_oracle)
+    drop_tables(hdk, "trips_j", "payments_j")
+    del trips, payments
+
+    # J1 (partitioned: its build above the broadcast threshold, which a
+    # cut build lowers to half its rows on every rank alike)
+    trips, payments = join_tables(sz["j1_scale"])
+    n_probe = trips["k"].size
+    dcfg = hdk.config.dist
+    dcfg.broadcast_join_threshold = min(dcfg.broadcast_join_threshold,
+                                        payments["k"].size // 2)
+    fee_of = np.empty(payments["k"].size, np.float64)
+    fee_of[payments["k"]] = payments["fee"]
+
+    def j1_oracle(out):
+        count, fee = out.values()
+        equal(count, [n_probe], "mh J1 count")
+        close(fee, [fee_of[trips["k"]].sum()], 1e-6, "mh J1 sum(fee)")
+
+    query("J1", lambda: hdk.scan("trips_j").join(
+        hdk.scan("payments_j"), "k", "k").agg([], "count",
+                                              "sum(fee)").run(),
+          n_probe, {"_dist_join_route": "partitioned"}, j1_oracle)
+    report[-1]["broadcast_join_threshold"] = dcfg.broadcast_join_threshold
+    drop_tables(hdk, "trips_j", "payments_j")
+    del trips, payments, fee_of
+    out = {"rank": rank, "queries": report, "launches": totals,
+           "peak_device_bytes": (torch.cuda.max_memory_allocated() if cuda
+                                 else None),
+           "transport": tr.backend, "transport_reason": tr.reason,
+           "devices": [str(d) for d in mesh.devices]}
+    del hdk
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def multihost_phase(card, dist_stats, device="cuda", sizes=None,
+                    config=None, want=DIST_KERNELS):
+    """Phase 12: two ranks of this script, fresh processes on the one
+    card, joined over gloo on 127.0.0.1 with operands staged through
+    pinned host memory, each with 2 of the 4 shards.  A rank that fails
+    or outlives ``MH_TIMEOUT_S`` fails the phase, and both are killed on
+    the way out.  Returns the kernel launches summed over the ranks."""
+    t_phase = time.perf_counter()
+    sz = {**MH_SIZES, **(sizes or {})}
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    address = f"127.0.0.1:{free_port()}"
+    log(f"phase 12: {MH_WORLD} ranks x {MH_SHARDS // MH_WORLD} shards on "
+        f"the one card, gloo at {address} [{card}]")
+    extra = ["--device", device, "--sizes", json.dumps(sz),
+             "--config", json.dumps(config or {})]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--address", address] + extra,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MH_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MH_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks = []
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        for line in se.splitlines():
+            if line.startswith(f"rank {r} "):
+                log(line)
+        check(p.returncode == 0,
+              f"phase 12: rank {r} exited {p.returncode}:\n{se[-6000:]}")
+        lines = [ln for ln in so.splitlines() if ln.startswith('{"rank"')]
+        check(bool(lines), f"phase 12: rank {r} printed no result")
+        ranks.append(json.loads(lines[-1]))
+    totals = {k: sum(rk["launches"][k] for rk in ranks)
+              for k in ranks[0]["launches"]}
+    for rk in ranks:
+        log(f"phase 12: rank {rk['rank']} on {rk['devices']}, transport "
+            f"{rk['transport']} ({rk['transport_reason']}), "
+            f"peak_device_bytes={rk['peak_device_bytes']}, kernel launches "
+            f"{rk['launches']} [{card}]")
+    for i, q in enumerate(ranks[0]["queries"]):
+        label = q["label"]
+        p11 = dist_stats.get(label)
+        for rk in ranks[1:]:
+            other = rk["queries"][i]
+            check(other["routes"] == q["routes"]
+                  and other["retries"] == q["retries"]
+                  and other["commlog"] == q["commlog"],
+                  f"phase 12 {label}: the ranks disagree")
+        same_size = p11 is not None and p11["rows"] == q["rows"]
+        if same_size:
+            check(q["commlog"] == p11["commlog"],
+                  f"phase 12 {label}: commlog {q['commlog']} is not phase "
+                  f"11's {p11['commlog']}")
+        warm = [rk["queries"][i]["warm_ms"] for rk in ranks]
+        log(f"multi-host {label}: routes={q['routes']} rows={q['rows']} "
+            f"retries={q['retries']} warm_ms_by_rank={warm!r} "
+            f"phase11_4shard_warm_ms="
+            f"{p11['warm_ms'] if same_size else None!r} "
+            f"single_device_warm_ms="
+            f"{p11['single_device_warm_ms'] if same_size else None!r} "
+            f"commlog={json.dumps(q['commlog'])} "
+            f"commlog_equals_phase11={same_size} "
+            f"staged_bytes_per_run_by_rank="
+            f"{[rk['queries'][i]['staged_bytes_per_run'] for rk in ranks]} "
+            f"staged_ms_per_run_by_rank="
+            f"{[rk['queries'][i]['staged_ms_per_run'] for rk in ranks]!r} "
+            f"cold_s_by_rank={[rk['queries'][i]['cold_s'] for rk in ranks]!r}"
+            f" [{card}]")
+    for name in want:
+        check(totals[name] > 0, f"kernel {name} never launched inside the "
+              f"ranks of phase 12 ({totals})")
+    full = {**MH_SIZES, "hn1_rows": HIGH_NDV_ROWS, "j1_scale": 1.0}
+    cuts = [f"{k}={v} (full size: {full[k]})" for k, v in sz.items()
+            if v != full[k]]
+    log(f"multi-host path: kernel launches {totals}; phase 12 in "
+        f"{time.perf_counter() - t_phase:.1f} s; cut: "
+        f"{'; '.join(cuts) or 'nothing'}")
     return totals
 
 
@@ -2496,6 +2906,11 @@ def main() -> None:
     so = build.build()
     build.library()
     log(f"build: {so.name} in {time.perf_counter() - t0:.2f} s")
+    if "--phase12" in sys.argv:
+        # phase 12 alone, at the sizes given (no contract line)
+        del hdk
+        multihost_phase(card, {}, sizes=json.loads(_arg("--sizes", "{}")))
+        return
 
     t0 = time.perf_counter()
     taxi = gen_taxi(TAXI_ROWS)
@@ -2598,9 +3013,13 @@ def main() -> None:
     # phase 11: a 4-shard session on the one card beside a single-device
     # one; its counts are the distributed runs' only (reset before each)
     torch.cuda.empty_cache()
-    dist_launches = dist_phase(hdk_tpu_torch, card, hist)
+    dist_launches, dist_stats = dist_phase(hdk_tpu_torch, card, hist)
     check("jax" not in sys.modules, "jax was imported")
     log_device_cache("phase 11")
+
+    # phase 12: two ranks of a multi-host session on the card, launches
+    # counted inside the ranks and summed here
+    mh_launches = multihost_phase(card, dist_stats)
 
     kernels = []
     for name, rec in report.items():
@@ -2624,6 +3043,7 @@ def main() -> None:
             "controls_path_launches": controls_launches[name],
             "facade_path_launches": facade_launches[name],
             "dist_path_launches": dist_launches[name],
+            "multihost_path_launches": mh_launches[name],
             "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it
@@ -2633,5 +3053,17 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def _arg(name: str, default):
+    if name in sys.argv:
+        return type(default)(sys.argv[sys.argv.index(name) + 1])
+    return default
+
+
 if __name__ == "__main__":
-    main()
+    if "--rank" in sys.argv:
+        print(json.dumps(mh_rank(
+            _arg("--rank", 0), _arg("--address", ""),
+            _arg("--device", "cuda"), json.loads(_arg("--sizes", "{}")),
+            json.loads(_arg("--config", "{}")))), flush=True)
+    else:
+        main()

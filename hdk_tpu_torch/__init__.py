@@ -266,10 +266,6 @@ class HDK:
         self._config = (config_kwargs.pop("config")
                         if "config" in config_kwargs
                         else build_config(**config_kwargs))
-        if self._config.dist.enable and self._config.dist.multi_host:
-            raise NotImplementedError(
-                "multi-host sessions (dist.multi_host) are not ported yet "
-                "(ROADMAP A9b)")
         self._schema = SchemaRegistry()
         self._dicts = DictionaryRegistry()
         from .utils import logger as _logger
@@ -342,10 +338,18 @@ class HDK:
             self._tmp_counter += 1
             return f"table_{self._tmp_counter}"
 
-    def _register(self, name, cols) -> QueryNode:
+    def _register(self, name, cols, process_local: bool = False
+                  ) -> QueryNode:
+        from .parallel import mesh as pmesh
+
+        if process_local:
+            cols = pmesh.align_process_local(name, cols, self._executor._mesh)
         tid = self._schema.next_table_id(DATA_SCHEMA_ID)
         table = _imp.build_table(tid, name, cols,
-                                 self._config.storage.fragment_size)
+                                 self._config.storage.fragment_size,
+                                 process_local=process_local)
+        if process_local:
+            pmesh.share_process_layout(table)
         self._schema.register(table)
         return self.scan(name)
 
@@ -357,13 +361,16 @@ class HDK:
         carries NULLs where it is masked (no pyarrow needed), and a 2-D
         one (rows x width) is an array column whose masked elements are
         absent, which gives lists of any length up to the width.
-        ``process_local`` (each host's own rows of one table) belongs to
-        multi-host sessions and raises (ROADMAP A9b)."""
-        if process_local:
-            raise NotImplementedError(
-                "process-local tables need multi-host sessions "
-                "(ROADMAP A9b)")
+
+        ``process_local=True`` (a multi-host session): ``data`` holds only
+        this rank's rows, and scans assemble the global row-sharded table
+        across the ranks; every rank must import the same table name with
+        its own rows, at the same point of the same program.  String
+        columns are unified at ingest: every rank's dictionary joins one
+        canonical code space, the rank-ordered union, and the local codes
+        are rewritten."""
         name = self._table_name(name)
+        pre_dicts = set(self._dicts._dicts) if process_local else set()
         cols = []
         for cname, values in data.items():
             if isinstance(values, np.ma.MaskedArray) and values.ndim == 2:
@@ -380,7 +387,37 @@ class HDK:
             else:
                 cols.extend(_imp.columns_from_pydict(
                     {cname: values}, self._dicts, schema))
-        return self._register(name, cols)
+        if process_local:
+            cols = self._unify_process_local_dicts(cols, pre_dicts)
+        return self._register(name, cols, process_local=process_local)
+
+    def _unify_process_local_dicts(self, cols, pre_dicts):
+        """Rewrite freshly dict-encoded process-local columns into the
+        cross-process canonical code space (parallel/mesh.py).  A column
+        on a dictionary that existed before this import is refused: its
+        unification would rewrite the codes of tables already
+        ingested."""
+        from .parallel.mesh import process_count, unify_process_dictionary
+        from .storage.dictionary import NULL_CODE
+
+        if process_count() == 1:
+            return cols
+        out = []
+        for (cname, typ, phys, validity) in cols:
+            if typ.is_dict_encoded_string():
+                did = typ.dict_id  # type: ignore[attr-defined]
+                if did in pre_dicts:
+                    raise ValueError(
+                        f"process_local column {cname!r} declares a shared "
+                        "dictionary; cross-process unification would "
+                        "rewrite codes of previously ingested tables — "
+                        "import it with a fresh dictionary instead")
+                trans = unify_process_dictionary(self._dicts.get(did))
+                codes = np.asarray(phys)
+                phys = np.where(codes >= 0, trans[np.maximum(codes, 0)],
+                                NULL_CODE).astype(np.int32)
+            out.append((cname, typ, phys, validity))
+        return out
 
     def import_arrow(self, at, name: Optional[str] = None,
                      schema=None) -> QueryNode:
@@ -730,8 +767,12 @@ class HDK:
         measures slower turns itself off).  Returns (dag, None), or (dag,
         (signature, variant)) when this run is the timed one."""
         ecfg = self._config.exec
+        mesh = self._executor._mesh
+        # ranks time on their own clocks and could choose apart: a
+        # multi-host session keeps the rewrite, untimed
         if (not ecfg.enable_eager_aggregation
-                or not ecfg.enable_route_feedback):
+                or not ecfg.enable_route_feedback
+                or (mesh is not None and mesh.world > 1)):
             return rewritten, None
         order = rewritten.topo_order()
         if not (any(isinstance(n, _ir_node.Aggregate) for n in order)

@@ -187,15 +187,18 @@ class DistConfig:
     # (reference analog: per-device hash-table replicas,
     # PerfectJoinHashTable.cpp:370-400); larger builds shuffle-partition
     broadcast_join_threshold: int = 1 << 22
-    # multi-host (pod-slice / DCN) job membership: when enabled, the
-    # session joins via jax.distributed.initialize before building the
-    # mesh (parallel/mesh.init_distributed).  On TPU pod slices all
-    # three values auto-detect — leave the defaults; on CPU/GPU
-    # clusters set them (or the JAX_* env equivalents)
+    # multi-host job membership: when enabled, the session joins through
+    # torch.distributed.init_process_group before building the mesh
+    # (parallel/mesh.init_distributed).  The defaults read torchrun's
+    # environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK); else give
+    # "host:port" (or a tcp:// or file:// URL), the count and the rank
     multi_host: bool = False
-    coordinator_address: str = ""  # "" = auto-detect
-    num_processes: int = 0         # 0 = auto-detect
-    process_id: int = -1           # -1 = auto-detect
+    coordinator_address: str = ""  # "" = env://
+    num_processes: int = 0         # 0 = from the environment
+    process_id: int = -1           # -1 = from the environment
+    # every collective of a multi-host session fails after this long, so
+    # a rank that diverged raises instead of hanging
+    timeout_s: float = 600.0
 
 
 @dataclass

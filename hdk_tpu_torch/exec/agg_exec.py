@@ -365,10 +365,12 @@ class AggExecMixin:
         fragment each under a watchdog time limit), the last one maybe
         shorter; None when the whole columns go to the device."""
         # a dist scan's row mask is its shard padding: chunks re-slice
-        # the host table
+        # the host table.  A process-local table does not stream: its
+        # ranks hold different rows, and would stream different chunks
         if ((source.row_mask is not None and self._mesh is None)
                 or isinstance(source.columns, _PrunedScanColumns)
-                or not isinstance(src_node, nd.Scan)):
+                or not isinstance(src_node, nd.Scan)
+                or getattr(src_node.table, "process_local", False)):
             return None
         if not all(a.kind in _COMBINE and not a.distinct
                    for a in node.aggs):
@@ -496,7 +498,7 @@ class AggExecMixin:
 
         shards, rms, rps = self._split_cols(sub_cols, None, rows)
         per = []
-        for s in range(self._mesh.size):
+        for s in range(self._mesh.local_size):
             with self._on_shard(s):
                 per.append(fn([c[s] for c in shards], rps,
                               None if rms is None else rms[s]))
@@ -614,7 +616,14 @@ class AggExecMixin:
     def _probed_layout(self, node: nd.Aggregate, source: ExecTable, chain,
                        src_node):
         """(layout, key ranges) from one device min/max pass over the keys
-        (a host sync)."""
+        (a host sync); over a process-local scan, each rank's bounds
+        combined over every rank."""
+        from .dist_exec import _is_local
+        from ..utils import commlog
+
+        local = _is_local(source)
+        rm0, nrows0 = ((self._local_frame(source)) if local
+                       else (source.row_mask, source.nrows))
         used = self._used_columns(src_node, chain, list(node.keys))
         key = chain_key(_schema_sig(source), chain, node,
                         self._dict_generation_sig(chain, node)
@@ -623,11 +632,10 @@ class AggExecMixin:
         def probe():
             resolve, rm = self._terminal_env(
                 src_node, [source.columns[i] for i in used], used,
-                len(source.fields), chain, source.row_mask, source.nrows)
+                len(source.fields), chain, rm0, nrows0)
             bounds = []
             for kx in node.keys:
-                v = _broadcast(self.scalar.evaluate(kx, resolve),
-                               source.nrows)
+                v = _broadcast(self.scalar.evaluate(kx, resolve), nrows0)
                 data = v.data.to(torch.int64)
                 live = combine_masks(v.mask, rm)
                 if live is not None:
@@ -637,9 +645,13 @@ class AggExecMixin:
                 else:
                     lo, hi = data.min(), data.max()
                 bounds.append(torch.stack([lo, hi]))
+            bounds = torch.stack(bounds)
+            if local:
+                every = torch.stack(commlog.all_shards([bounds]))
+                bounds = torch.stack([every[:, :, 0].min(0).values,
+                                      every[:, :, 1].max(0).values], 1)
             ranges = []
-            for (lo_i, hi_i), k in zip(torch.stack(bounds).tolist(),
-                                       node.keys):
+            for (lo_i, hi_i), k in zip(bounds.tolist(), node.keys):
                 if lo_i > hi_i:  # no live rows
                     lo_i, hi_i = 0, 0
                 ranges.append((int(lo_i), int(hi_i), k.type.nullable))
@@ -705,12 +717,15 @@ class AggExecMixin:
                 self._ndv_sample_seconds += _time.perf_counter() - t0
 
         def sample():
-            samp = [MaskedCol(c.data[::stride][:s],
-                              c.mask[::stride][:s] if c.mask is not None
-                              else None)
-                    for c in (source.columns[i] for i in used)]
-            rm0 = (source.row_mask[::stride][:s]
-                   if source.row_mask is not None else None)
+            if self._mesh is not None:
+                samp, rm0 = self._strided_sample(source, used, stride, s)
+            else:
+                samp = [MaskedCol(c.data[::stride][:s],
+                                  c.mask[::stride][:s] if c.mask is not None
+                                  else None)
+                        for c in (source.columns[i] for i in used)]
+                rm0 = (source.row_mask[::stride][:s]
+                       if source.row_mask is not None else None)
             resolve, rmx = self._terminal_env(src_node, samp, used,
                                               len(source.fields), chain,
                                               rm0, s)

@@ -38,7 +38,7 @@ def estimate_rows(node: nd.Node) -> float:
     """Estimated output rows; coarse but monotone, which is all the
     plan-level choices need (swap or not, broadcast or shuffle)."""
     if isinstance(node, nd.Scan):
-        return float(node.table.nrows)
+        return float(node.table.global_nrows)
     if isinstance(node, nd.LogicalValues):
         return float(len(node.rows))
     if isinstance(node, nd.Project):

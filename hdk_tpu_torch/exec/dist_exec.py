@@ -1,9 +1,13 @@
 """Distributed execution (counterpart of hdk_tpu/exec/dist_exec.py, the
-executor's mixin for multi-device sessions on one process).
+executor's mixin for multi-device sessions).
 
 A dist session's scan pads its rows to a multiple of the shard count
 (the padding dead in the row mask) and shards them: on one card the
-shards are ``narrow`` views of the scan's column tensors.  Steps with a
+shards are ``narrow`` views of the scan's column tensors.  In a
+multi-host session every rank holds a replicated table whole and reads
+its own shards of it; a process-local table holds each rank's own rows,
+padded to a common quota (``_exec_scan_process_local``), and its
+gathered view is an all-gather onto every rank.  Steps with a
 distributed route read those shards and run their bodies per shard:
 
   * GROUP BY (``_dist_agg_route``): ``dense_psum`` (a dense layout and
@@ -26,8 +30,10 @@ all_gather marked as a gather): on one card, the scan's own tensors.
 The shuffling routes size their buffers ahead, count overflow and widen
 and retry (3 attempts, ``exec.allow_retry``), as the JAX package's
 shard bodies must; an exhausted ladder falls back to the single-device
-route, never to a short result.  Process-local (multi-host) scans wait
-for ROADMAP A9b.
+route, never to a short result.  Every rank of a multi-host session
+must take the same host decisions: live counts, join capacities, the
+hot-key probe and the NDV sample read every rank's shards
+(``commlog.all_shards`` / ``all_rows``), never this rank's alone.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 
 from ..ir import expr as ir
 from ..ir import node as nd
+from ..utils import commlog
 from ..utils.logger import get_channel
 from . import groupby as gb
 from .common import ExecTable, _LazyScanColumns, _broadcast
@@ -65,19 +72,31 @@ class _ShardedScanColumns(_LazyScanColumns):
     """A dist scan's columns, padded to a multiple of the shard count.
     ``peek(i)`` gives the padded column to a distributed route, which
     shards it; indexing (a step without a distributed route) gives the
-    gathered view and records the gather."""
+    gathered view and records the gather.  ``local_rows`` (a
+    process-local table): the rows every rank pads its own to, and a
+    peeked column holds this rank's rows only."""
 
-    def __init__(self, table, fields, device, mesh) -> None:
+    def __init__(self, table, fields, device, mesh,
+                 local_rows: Optional[int] = None) -> None:
         super().__init__(table, fields, device)
         self._mesh = mesh
         self._peeked: Dict[int, MaskedCol] = {}
+        self.local_rows = local_rows
+
+    @property
+    def local(self) -> bool:
+        return self.local_rows is not None
 
     def peek(self, i: int) -> MaskedCol:
         got = self._peeked.get(i)
         if got is None:
             col = self._table.column(self._fields[i])
             data, mask = col.device_arrays(self._device)
-            got = _padded(col, data, mask, self._mesh)
+            if self.local:
+                got = _padded_local(col, data, mask, self._mesh,
+                                    self.local_rows)
+            else:
+                got = _padded(col, data, mask, self._mesh)
             self._peeked[i] = got
         return got
 
@@ -85,8 +104,8 @@ class _ShardedScanColumns(_LazyScanColumns):
         got = list.__getitem__(self, i)
         if got is None and isinstance(i, int):
             c = self.peek(i)
-            got = MaskedCol(self._mesh.view(c.data),
-                            self._mesh.view(c.mask))
+            view = self._mesh.view_local if self.local else self._mesh.view
+            got = MaskedCol(view(c.data), view(c.mask))
             self[i] = got
         return got
 
@@ -110,6 +129,40 @@ def _padded(col, data, mask, mesh) -> MaskedCol:
     return out
 
 
+def _padded_local(col, data, mask, mesh, per: int) -> MaskedCol:
+    """This rank's rows of a process-local column padded to the common
+    quota ``per``; a rowid column holds the rows' positions in the
+    global padded layout (rank * per + local row)."""
+    from ..parallel.mesh import pad_to
+
+    key = (str(data.device), "local", mesh.rank, per)
+    cache = getattr(col, "_torch_dist_padded", None)
+    if cache is None:
+        cache = col._torch_dist_padded = {}
+    hit = cache.get(key)
+    if hit is not None and hit[0] is data:
+        return hit[1]
+    src = data
+    if col.info.is_rowid:
+        src = mesh.rank * per + torch.arange(data.shape[0], dtype=torch.int64,
+                                             device=data.device)
+    out = MaskedCol(pad_to(src, per),
+                    None if mask is None else pad_to(mask, per, False))
+    cache[key] = (data, out)
+    return out
+
+
+def _is_local(table: ExecTable) -> bool:
+    """A dist scan (or its peeked view) of a process-local table."""
+    return bool(getattr(table.columns, "local", False))
+
+
+def _gathered(table: ExecTable) -> ExecTable:
+    """The table whose columns are the gathered view, for a peeked one."""
+    cols = table.columns
+    return cols._table if isinstance(cols, _PeekColumns) else table
+
+
 @dataclass
 class _Shards:
     """A step input split over the mesh: per column, one MaskedCol per
@@ -120,16 +173,17 @@ class _Shards:
     cols: List[List[MaskedCol]]
     rm: Optional[List[torch.Tensor]]
     rows_per_shard: int
-    shards: int
+    shards: int  # global
 
     @property
     def nrows(self) -> int:
         return self.rows_per_shard * self.shards
 
     def live_count(self) -> int:
+        """Live rows over every rank's shards (a host sync)."""
         if self.rm is None:
             return self.nrows
-        return int(sum(int(r.sum()) for r in self.rm))  # host sync
+        return sum(commlog.all_ranks(sum(int(r.sum()) for r in self.rm)))
 
 
 def _peek(table: ExecTable, i: int) -> MaskedCol:
@@ -144,6 +198,7 @@ class _PeekColumns(list):
     def __init__(self, table: ExecTable) -> None:
         super().__init__([None] * len(table.fields))
         self._table = table
+        self.local = _is_local(table)
 
     def __getitem__(self, i):
         if isinstance(i, int):
@@ -160,6 +215,8 @@ class DistExecMixin:
         """Rows padded to a multiple of the shard count, padding dead in
         the row mask; the columns shard on first use."""
         mesh = self._mesh
+        if getattr(node.table, "process_local", False) and mesh.world > 1:
+            return self._exec_scan_process_local(node)
         nrows = node.table.nrows
         total = nrows + (-nrows) % mesh.size
         rm = (None if total == nrows else
@@ -169,6 +226,58 @@ class DistExecMixin:
         return ExecTable(list(node.fields), list(node.output_types), cols,
                          total, rm)
 
+    def _exec_scan_process_local(self, node: nd.Scan) -> ExecTable:
+        """Multi-controller scan: every rank contributes its own rows,
+        padded to the common quota (``parallel/mesh.quota`` over the row
+        counts every rank reported at ingest), and no rank holds the
+        whole table.  Rank r's rows are global rows [r * per, (r + 1) *
+        per); the row mask (None where no rank pads) is the global one,
+        built from the counts without a collective."""
+        from ..parallel.mesh import quota
+
+        mesh = self._mesh
+        counts = node.table.rank_rows
+        per, total = quota(counts, mesh.local_size)
+        rm = None
+        if any(c != per for c in counts):
+            pos = torch.arange(per, device=self.device)
+            rm = torch.cat([pos < c for c in counts])
+        cols = _ShardedScanColumns(node.table, list(node.fields),
+                                   self.device, mesh, local_rows=per)
+        return ExecTable(list(node.fields), list(node.output_types), cols,
+                         total, rm)
+
+    def _local_frame(self, table: ExecTable):
+        """(row mask, rows) of this rank's part of a peeked process-local
+        table, whose columns hold this rank's rows."""
+        per = table.nrows // self._mesh.world
+        rm = table.row_mask
+        if rm is not None:
+            rm = rm.narrow(0, self._mesh.rank * per, per)
+        return rm, per
+
+    def _strided_sample(self, source: ExecTable, used, stride: int, s: int):
+        """(columns, row mask) of the source's rows 0, stride, 2 * stride,
+        ... (``s`` of them) in global row order: of a process-local
+        source, each rank's rows among them, gathered onto every rank."""
+        cols = [source.columns[i] for i in used]
+        rm = source.row_mask
+        rm0 = None if rm is None else rm[::stride][:s]
+        if not _is_local(source):
+            return [MaskedCol(c.data[::stride][:s],
+                              c.mask[::stride][:s] if c.mask is not None
+                              else None) for c in cols], rm0
+        per = source.nrows // self._mesh.world
+        base = self._mesh.rank * per
+        k0 = -(-base // stride)
+        k1 = max(k0, min(s, -(-(base + per) // stride)))
+        idx = (torch.arange(k0, k1, dtype=torch.int64, device=self.device)
+               * stride - base)
+        samp = [MaskedCol(commlog.all_rows(c.data[idx]),
+                          None if c.mask is None
+                          else commlog.all_rows(c.mask[idx])) for c in cols]
+        return samp, rm0
+
     def _peeked(self, table: ExecTable) -> ExecTable:
         if not isinstance(table.columns, _ShardedScanColumns):
             return table
@@ -176,13 +285,21 @@ class DistExecMixin:
                          table.nrows, table.row_mask,
                          unique_sets=table.unique_sets)
 
-    def _split_cols(self, cols: List[Optional[MaskedCol]], rm, nrows: int):
-        """(per-column shard lists, per-shard row masks, rows a shard) of
-        columns of ``nrows`` rows, padded to the mesh where needed (the
-        padding dead in the row mask)."""
+    def _split_cols(self, cols: List[Optional[MaskedCol]], rm, nrows: int,
+                    local: bool = False):
+        """(per-column lists of this rank's shards, their row masks, rows
+        a shard) of columns of ``nrows`` rows, padded to the mesh where
+        needed (the padding dead in the row mask).  ``local``: the columns
+        are a process-local scan's (this rank's rows, padded to the
+        quota) and ``rm`` its global row mask."""
         from ..parallel.mesh import pad_rows
 
         mesh = self._mesh
+        if local:
+            return ([None if c is None else mesh.split_col(c, local=True)
+                     for c in cols],
+                    None if rm is None else mesh.split(rm),
+                    nrows // mesh.size)
         pad = (-nrows) % mesh.size
         if pad:
             if rm is None:
@@ -239,11 +356,12 @@ class DistExecMixin:
                 if any(isinstance(n, nd.Project) for n in chain)
                 else list(range(size)))
         scols, srm, rps = self._split_cols([src.columns[i] for i in used],
-                                           src.row_mask, src.nrows)
+                                           src.row_mask, src.nrows,
+                                           local=_is_local(src))
         if not chain:
             return _Shards(fields, types_, scols, srm, rps, p)
         per_shard, rms = [], []
-        for s in range(p):
+        for s in range(self._mesh.local_size):
             with self._on_shard(s):
                 env, final, rm = self._chain_env(
                     src_node, self._expand_cols([c[s] for c in scols], used,
@@ -251,7 +369,7 @@ class DistExecMixin:
                     None if srm is None else srm[s], nrows=rps)
             per_shard.append([_broadcast(c, rps) for c in env[final.id]])
             rms.append(rm)
-        cols = [[per_shard[s][j] for s in range(p)]
+        cols = [[shard[j] for shard in per_shard]
                 for j in range(len(fields))]
         return _Shards(fields, types_, cols,
                        None if rms[0] is None else rms, rps, p)
@@ -318,10 +436,11 @@ class DistExecMixin:
         size = len(src.fields)
         used = self._used_columns(src_node, chain, [])
         scols, srm, rps = self._split_cols([src.columns[i] for i in used],
-                                           src.row_mask, src.nrows)
+                                           src.row_mask, src.nrows,
+                                           local=_is_local(src))
         inputs = []
         rms = []
-        for s in range(p):
+        for s in range(mesh.local_size):
             with self._on_shard(s):
                 env, _f, rmx = self._chain_env(
                     src_node, self._expand_cols([c[s] for c in scols], used,
@@ -340,7 +459,7 @@ class DistExecMixin:
         attempts = 3 if self.config.exec.allow_retry else 1
         vals: Dict[int, MaskedCol] = {}
         for wi_, w in enumerate(wfs):
-            aa, pp, oo = ([[inputs[s][wi_][g][j] for s in range(p)]
+            aa, pp, oo = ([[inp[wi_][g][j] for inp in inputs]
                            for j in range(len(inputs[0][wi_][g]))]
                           for g in range(3))
             slack = 2.0
@@ -355,9 +474,11 @@ class DistExecMixin:
             else:
                 return None
             vals[id(w)] = col
+        # the chain's output reads every row: the gathered view
+        full = _gathered(src)
         env, final, rm_out = self._chain_env(
-            src_node, self._expand_cols([src.columns[i] for i in used], used,
-                                        size), chain,
+            src_node, self._expand_cols([full.columns[i] for i in used],
+                                        used, size), chain,
             src.row_mask, nrows=src.nrows, window_override=vals)
         self._dist_window_route = "dist_window"
         return ExecTable(list(node.fields), list(node.output_types),
@@ -395,7 +516,7 @@ class DistExecMixin:
         shard)."""
         used = self._agg_used(node, chain, src_node)
         size = len(source.fields)
-        p = self._mesh.size
+        local = _is_local(source)
 
         def prep(sub_cols, row_mask, nrows):
             resolve, rm = self._terminal_env(src_node, sub_cols, used, size,
@@ -412,7 +533,8 @@ class DistExecMixin:
 
         if self._chain_has_window(chain):
             # the declined window runs over all rows; its outputs split
-            keys, ops, rm = prep([source.columns[i] for i in used],
+            full = _gathered(source)
+            keys, ops, rm = prep([full.columns[i] for i in used],
                                  source.row_mask, source.nrows)
             flat = list(keys) + [o for pair in ops for o in pair]
             shards, rms, rps = self._split_cols(flat, rm, source.nrows)
@@ -421,18 +543,18 @@ class DistExecMixin:
                       for i in range(len(ops))]
             return shards[:nk], ops_sh, rms, rps
         scols, srm, rps = self._split_cols(
-            [source.columns[i] for i in used], source.row_mask, source.nrows)
+            [source.columns[i] for i in used], source.row_mask, source.nrows,
+            local=local)
         per = []
-        for s in range(p):
+        for s in range(self._mesh.local_size):
             with self._on_shard(s):
                 per.append(prep([c[s] for c in scols],
                                 None if srm is None else srm[s], rps))
-        keys = [[per[s][0][j] for s in range(p)]
-                for j in range(len(node.keys))]
+        keys = [[sh[0][j] for sh in per] for j in range(len(node.keys))]
         ops = [tuple(None if per[0][1][i][k] is None else
-                     [per[s][1][i][k] for s in range(p)] for k in (0, 1))
+                     [sh[1][i][k] for sh in per] for k in (0, 1))
                for i in range(len(node.aggs))]
-        rm = None if per[0][2] is None else [per[s][2] for s in range(p)]
+        rm = None if per[0][2] is None else [sh[2] for sh in per]
         return keys, ops, rm, rps
 
     def _dist_specs(self, node: nd.Aggregate, ops) -> List[gb.AggSpec]:
@@ -572,9 +694,10 @@ class DistExecMixin:
             return 1.0  # unknown: assume the worst, stay skew-proof
         t0 = _t.perf_counter()
         def prefix(shards):
-            """The first ``s`` rows over the shards, on this device."""
+            """The first ``s`` rows over every rank's shards, on this
+            device."""
             out, got = [], 0
-            for x in shards:
+            for x in commlog.all_shards([x[:s] for x in shards]):
                 if got >= s:
                     break
                 out.append(x[:s - got].to(self.device))
@@ -695,8 +818,9 @@ class DistExecMixin:
 
         lexprs = [l for l, _ in node.key_pairs]
         rexprs = [r for _, r in node.key_pairs]
+        local = range(mesh.local_size)
         lkeys_s = []
-        for s in range(ndev):
+        for s in local:
             with self._on_shard(s):
                 lkeys_s.append(eval_keys(lexprs, [c[s] for c in lhs.cols],
                                          lhs.rows_per_shard))
@@ -710,10 +834,10 @@ class DistExecMixin:
                 return None
             rkeys = eval_keys(rexprs, rt.columns, rt.nrows)
             self._unify_key_types(node, lkeys_s[0], rkeys)
-            for s in range(1, ndev):  # the probe keys' promotions
+            for s in local[1:]:  # the probe keys' promotions
                 lkeys_s[s] = [MaskedCol(k.data.to(k0.data.dtype), k.mask)
                               for k, k0 in zip(lkeys_s[s], lkeys_s[0])]
-            lkeys = [[lkeys_s[s][j] for s in range(ndev)]
+            lkeys = [[lkeys_s[s][j] for s in local]
                      for j in range(len(lexprs))]
             totals = dj.count_candidates_broadcast(mesh, lkeys, lhs.rm, rkeys)
             pair_cap = _next_pow2(max(64, int(totals.max())))
@@ -723,15 +847,15 @@ class DistExecMixin:
             self._dist_join_route = "broadcast"
         else:
             rkeys_s = []
-            for s in range(ndev):
+            for s in local:
                 with self._on_shard(s):
                     rk = eval_keys(rexprs, [c[s] for c in rhs.cols],
                                    rhs.rows_per_shard)
                     self._unify_key_types(node, lkeys_s[s], rk)
                 rkeys_s.append(rk)
-            lkeys = [[lkeys_s[s][j] for s in range(ndev)]
+            lkeys = [[lkeys_s[s][j] for s in local]
                      for j in range(len(lexprs))]
-            rkeys = [[rkeys_s[s][j] for s in range(ndev)]
+            rkeys = [[rkeys_s[s][j] for s in local]
                      for j in range(len(rexprs))]
             hp, hb = dj.partition_histograms(mesh, lkeys, lhs.rm, rkeys,
                                              rhs.rm)

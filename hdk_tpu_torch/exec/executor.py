@@ -131,9 +131,15 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
             from ..parallel import mesh as pmesh
 
             if config.dist.multi_host:
-                raise NotImplementedError(
-                    "multi-host sessions (dist.multi_host) are not ported "
-                    "yet (ROADMAP A9b)")
+                # join the multi-controller job first, so the mesh spans
+                # every rank (parallel/mesh.py)
+                pmesh.init_distributed(
+                    coordinator_address=config.dist.coordinator_address
+                    or None,
+                    num_processes=config.dist.num_processes or None,
+                    process_id=(config.dist.process_id
+                                if config.dist.process_id >= 0 else None),
+                    device=device, timeout_s=config.dist.timeout_s)
             n = config.dist.num_devices or pmesh.default_shards(device)
             if n > 1:
                 self._mesh = pmesh.make_mesh(n, device)
@@ -319,7 +325,8 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
         from . import prune
 
         if (not self.config.exec.enable_fragment_skipping
-                or not isinstance(src_node, nd.Scan)):
+                or not isinstance(src_node, nd.Scan)
+                or getattr(src_node.table, "process_local", False)):
             return None
         got = results.get(src_node.id)
         if got is not None and not isinstance(got.columns, _LazyScanColumns):

@@ -17,7 +17,7 @@ from ..ir import node as nd
 
 def _node_line(node: nd.Node) -> str:
     if isinstance(node, nd.Scan):
-        return f"Scan({node.table.name}, rows={node.table.nrows})"
+        return f"Scan({node.table.name}, rows={node.table.global_nrows})"
     if isinstance(node, nd.Project):
         exprs = ", ".join(
             f"{f}={e.to_str()}" for f, e in zip(node.fields, node.exprs))

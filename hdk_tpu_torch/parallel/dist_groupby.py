@@ -2,8 +2,9 @@
 hdk_tpu/parallel/dist_groupby.py).
 
 Inputs are sharded: a key or operand is a list of one MaskedCol per
-shard, a row mask a list of tensors (``Mesh.split_col`` makes them from
-one column).  Each shard's body runs the port's group-by slot code
+local shard, a row mask a list of tensors (``Mesh.split_col`` makes them
+from one column); in a multi-host session each process passes its own
+shards and the collectives cross the processes.  Each shard's body runs the port's group-by slot code
 (``exec/groupby.reduce_slots``, ``groupby_sort``), so the histogram
 kernels K1-K4 launch once per shard; between the bodies the shards meet
 in ``utils/commlog`` collectives.  Four routes, as in the JAX package:
@@ -115,9 +116,8 @@ def dist_groupby_perfect(mesh, keys, layout: gb.PerfectHashLayout, specs,
     agg_cols, exists) of ``layout.entry_count`` entries on the mesh's
     first device."""
     n = layout.entry_count
-    p = mesh.size
     results, exists_l = [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         gid, _ = gb.perfect_gid([k[s] for k in keys], layout,
                                 None if row_valid is None else row_valid[s])
         res, counts = gb.reduce_slots(_shard_specs(specs, s), gid, n)
@@ -221,7 +221,7 @@ def dist_groupby_two_phase(mesh, keys, specs, rows_per_shard: int,
     cap = max(1, int(math.ceil(local_cap / p * slack)))
     specs = _pin_sketch_sizing(specs, max(local_cap, group_cap_per_shard))
     pkeys, pslots, pvalid, n_local = [], [], [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         k, sl, v, nl = _local_partials(
             [key[s] for key in keys], _shard_specs(specs, s),
             None if row_valid is None else row_valid[s], local_cap)
@@ -233,7 +233,7 @@ def dist_groupby_two_phase(mesh, keys, specs, rows_per_shard: int,
                                               row_valid=pvalid)
     nk = len(keys)
     out_keys, out_aggs, out_exists, ovf = [], [], [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         mkeys, mslots, exists, n_merged = _merge_partials(
             cols[s][:nk], cols[s][nk:], specs, rvalid[s],
             group_cap_per_shard)
@@ -325,16 +325,16 @@ def dist_groupby_shuffled(mesh, keys, specs, rows_per_shard: int,
     cap = max(1, int(math.ceil(rows_per_shard / p * slack)))
     nk = len(keys)
     payload = []
-    for s in range(p):
+    for s in range(mesh.local_size):
         ss = _shard_specs(specs, s)
         payload.append([sp.operand for sp in ss if sp.operand is not None]
                        + [sp.operand2 for sp in ss
                           if sp.operand2 is not None])
     cols, rvalid, overflow = shf.shuffle_rows(
-        [[k[s] for k in keys] for s in range(p)], payload, p, cap,
+        [[k[s] for k in keys] for s in range(mesh.local_size)], payload, p, cap,
         row_valid=row_valid)
     out_keys, out_aggs, out_exists, ovf = [], [], [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         rest = iter(cols[s][nk:])
         ops = [next(rest) if sp.operand is not None else None
                for sp in specs]
@@ -378,7 +378,7 @@ def dist_groupby_distinct_split(mesh, keys, specs, rows_per_shard: int,
 
     # phase 0: local pre-aggregation at the (keys.., salt) pair grain
     pcols, pslots, pvalid = [], [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         compound = [k[s] for k in keys] + [salt[s]]
         k, sl, v, _n = _local_partials(
             compound, _shard_specs(alg, s),
@@ -394,7 +394,7 @@ def dist_groupby_distinct_split(mesh, keys, specs, rows_per_shard: int,
     # phase 2: per-key partials over the received pair rows
     cap2 = p * cap1  # groups <= rows: this cap cannot overflow
     pkeys2, p2slots, valid2 = [], [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         k1, salt1, s1 = cols1[s][:nk], cols1[s][nk], cols1[s][nk + 1:]
         perm2, rv2, full2, kgid, kst, ken, n_keys2 = _sorted_key_spans(
             k1, rvalid1[s], cap2, minor_cols=[salt1])
@@ -433,7 +433,7 @@ def dist_groupby_distinct_split(mesh, keys, specs, rows_per_shard: int,
 
     # phase 4: merge the per-key partials, finalize
     out_keys, out_aggs, out_exists, ovf = [], [], [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         mkeys, mslots, exists, n_merged = _merge_partials(
             cols3[s][:nk], cols3[s][nk:], specs, rvalid3[s],
             group_cap_per_shard)

@@ -12,7 +12,7 @@ A shard's join is sync-free: sorted-hash build, binary-search probe and
 the capped pair expansion (``exec/join.expand_pairs_capped``, A2d).  The
 caller sizes the capacities exactly from counting passes first (the
 count-then-fill shape); any overflow is reported, never a short result.
-Sharded inputs are lists of per-shard MaskedCols, as in
+Sharded inputs are lists of per-local-shard MaskedCols, as in
 ``dist_groupby``; outputs are gathered on the mesh's first device.
 """
 
@@ -132,16 +132,17 @@ def _gather_out(mesh, outs, masks, ovs):
 
 def count_candidates_broadcast(mesh, probe_keys, probe_valid, build_keys
                                ) -> torch.Tensor:
-    """Per-shard candidate totals, (shards,): the count pass that sizes
-    the join's pair capacity exactly."""
+    """Every shard's candidate total, (global shards,): the count pass
+    that sizes the join's pair capacity exactly (the same on every
+    rank)."""
     tables = _tables_by_device(mesh, build_keys)
     totals = []
-    for s in range(mesh.size):
+    for s in range(mesh.local_size):
         lo, hi = jn.probe_ranges(tables[s], _mask_first(
             [k[s] for k in probe_keys],
             None if probe_valid is None else probe_valid[s]))
         totals.append((hi - lo).sum().to(mesh.device))
-    return torch.stack(totals)
+    return torch.stack(commlog.all_shards(totals))
 
 
 def dist_join_broadcast(mesh, probe_cols, probe_keys, probe_valid,
@@ -154,7 +155,7 @@ def dist_join_broadcast(mesh, probe_cols, probe_keys, probe_valid,
     bcols = _replicas(mesh, build_cols)
     bkeys = _replicas(mesh, build_keys)
     outs, masks, ovs = [], [], []
-    for s in range(mesh.size):
+    for s in range(mesh.local_size):
         out, mask, ov = _local_join(
             bcols[s], bkeys[s], None, [c[s] for c in probe_cols],
             [k[s] for k in probe_keys],
@@ -170,13 +171,13 @@ def dist_join_broadcast(mesh, probe_cols, probe_keys, probe_valid,
 
 def partition_histograms(mesh, probe_keys, probe_valid, build_keys,
                          build_valid) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rows bound for each shard, (shards,) per side, summed over the
-    sources: sizes the shuffle buffers so they cannot overflow."""
+    """Rows bound for each shard, (global shards,) per side, summed over
+    the sources: sizes the shuffle buffers so they cannot overflow."""
     p = mesh.size
 
     def hist(keys, valid):
         per = []
-        for s in range(p):
+        for s in range(mesh.local_size):
             dest = shf.bucket_for_shards(
                 shf.key_hash([k[s] for k in keys]), p).to(torch.int64)
             if valid is not None:
@@ -190,26 +191,27 @@ def partition_histograms(mesh, probe_keys, probe_valid, build_keys,
 
 
 def _shuffle_side(mesh, keys, cols, valid, cap):
-    p = mesh.size
-    return shf.shuffle_rows([[k[s] for k in keys] for s in range(p)],
-                            [[c[s] for c in cols] for s in range(p)],
-                            p, cap, row_valid=valid)
+    local = range(mesh.local_size)
+    return shf.shuffle_rows([[k[s] for k in keys] for s in local],
+                            [[c[s] for c in cols] for s in local],
+                            mesh.size, cap, row_valid=valid)
 
 
 def count_candidates_partitioned(mesh, probe_keys, probe_valid, build_keys,
                                  build_valid, probe_cap: int,
                                  build_cap: int) -> torch.Tensor:
-    """Per-shard candidate totals after the key shuffle (keys only)."""
+    """Every shard's candidate total after the key shuffle (keys only),
+    (global shards,)."""
     pk2, pv2, _ = _shuffle_side(mesh, probe_keys, [], probe_valid,
                                 probe_cap)
     bk2, bv2, _ = _shuffle_side(mesh, build_keys, [], build_valid,
                                 build_cap)
     totals = []
-    for s in range(mesh.size):
+    for s in range(mesh.local_size):
         table = jn.build(_mask_first(bk2[s], bv2[s]))
         lo, hi = jn.probe_ranges(table, _mask_first(pk2[s], pv2[s]))
         totals.append((hi - lo).sum().to(mesh.device))
-    return torch.stack(totals)
+    return torch.stack(commlog.all_shards(totals))
 
 
 def dist_join_partitioned(mesh, probe_cols, probe_keys, probe_valid,
@@ -225,7 +227,7 @@ def dist_join_partitioned(mesh, probe_cols, probe_keys, probe_valid,
     bshuf, bv2, ov2 = _shuffle_side(mesh, build_keys, build_cols,
                                     build_valid, build_cap)
     outs, masks, ovs = [], [], []
-    for s in range(mesh.size):
+    for s in range(mesh.local_size):
         pc2 = pshuf[s][nk:]
         out, mask, ov3 = _local_join(bshuf[s][nk:], bshuf[s][:nk], bv2[s],
                                      pc2, pshuf[s][:nk], pv2[s], join_type,

@@ -65,15 +65,16 @@ def dist_sort(mesh, sort_cols, descs: Sequence[bool],
               nulls_firsts: Sequence[bool], payload_cols,
               rows_per_shard: int, row_valid=None,
               sample_per_shard: int = 256, slack: float = 2.0):
-    """Sharded input (lists of per-shard MaskedCols) -> range-partitioned,
-    locally sorted shards gathered on the mesh's first device.  Returns
+    """Sharded input (lists of per-local-shard MaskedCols) ->
+    range-partitioned, locally sorted shards gathered on the mesh's first
+    device.  Returns
     (sorted payload columns, row validity, overflow): the valid rows in
     buffer order are the global order; ``num_shards * cap`` rows per
     column, cap = rows_per_shard * slack."""
     p = mesh.size
     cap = max(1, int(math.ceil(rows_per_shard * slack)))
     keys, valids, samples = [], [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         ks = [_sort_key(c[s], d, nf)
               for c, d, nf in zip(sort_cols, descs, nulls_firsts)]
         lead = ks[0]
@@ -88,7 +89,7 @@ def dist_sort(mesh, sort_cols, descs: Sequence[bool],
         valids.append(valid)
     all_samples = commlog.all_gather(samples)
     sends, bvalids, overflows, positions = [], [], [], None
-    for s in range(p):
+    for s in range(mesh.local_size):
         everything = torch.sort(all_samples[s].reshape(-1)).values
         total = everything.shape[0]
         spl = everything[torch.arange(1, p, device=everything.device)
@@ -104,7 +105,7 @@ def dist_sort(mesh, sort_cols, descs: Sequence[bool],
     recv, recv_valid = shf.exchange(sends, bvalids)
     nk = len(sort_cols)
     out_cols, out_valid = [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         cols = [MaskedCol(recv[s][di], recv[s][mi] if mi is not None
                           else None) for di, mi in positions]
         rv = recv_valid[s]

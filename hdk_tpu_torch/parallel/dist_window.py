@@ -4,7 +4,7 @@ back to the rows' home positions (counterpart of
 hdk_tpu/parallel/dist_window.py).
 
   1. every row is tagged with its global position
-     (shard * rows_per_shard + local index);
+     (global shard * rows_per_shard + local index);
   2. one hash shuffle by the PARTITION BY keys sends each partition
      whole to one shard (cap = rows_per_shard * slack; an overflow is
      reported and the caller widens and retries);
@@ -45,10 +45,10 @@ def dist_window(mesh, kind, args, part_cols, order_cols,
     cap = max(1, int(math.ceil(rows_per_shard * slack)))
     nargs, nparts = len(args), len(part_cols)
     keys, payload = [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         pp = [c[s] for c in part_cols]
         dev = pp[0].data.device
-        gpos = (s * rows_per_shard
+        gpos = ((mesh.first + s) * rows_per_shard
                 + torch.arange(rows_per_shard, dtype=torch.int64, device=dev))
         # dead rows still need their slot back: every row ships, its row
         # mask riding along
@@ -60,7 +60,7 @@ def dist_window(mesh, kind, args, part_cols, order_cols,
     cols, recv_valid, overflow = shf.shuffle_rows(keys, payload, p, cap)
     sends, bvalids = [], []
     has_mask = None
-    for s in range(p):
+    for s in range(mesh.local_size):
         c = cols[s]
         rpp = c[:nparts]
         raa = c[nparts:nparts + nargs]
@@ -78,7 +78,7 @@ def dist_window(mesh, kind, args, part_cols, order_cols,
         bvalids.append(bvalid)
     recv2, recv2_valid = shf.exchange(sends, bvalids)
     datas, masks = [], []
-    for s in range(p):
+    for s in range(mesh.local_size):
         vdata, vpos = recv2[s][0], recv2[s][1]
         # invalid slots land past the end, each on a slot of its own (one
         # shared discard slot would serialize their stores on the card)

@@ -89,13 +89,13 @@ def build_send_buffers(dest: torch.Tensor, payload: Sequence[torch.Tensor],
 def exchange(bufs: Sequence[Sequence[torch.Tensor]],
              buf_valid: Sequence[torch.Tensor]
              ) -> Tuple[List[List[torch.Tensor]], List[torch.Tensor]]:
-    """Exchange every shard's (P, cap, ...) buffers and flatten them to
-    (P * cap, ...) received rows with their validity.  ``bufs[s]`` is
-    shard s's list of buffers.  Buffers of one dtype go in one
+    """Exchange every local shard's (P, cap, ...) buffers (P the global
+    shard count) and flatten them to (P * cap, ...) received rows with
+    their validity.  ``bufs[s]`` is local shard s's list of buffers.  Buffers of one dtype go in one
     ``all_to_all`` (packed along a trailing axis), as in the JAX
     package.  The send buffers are released as they are packed: the
     caller's lists are emptied."""
-    p = len(buf_valid)
+    p = len(buf_valid)  # local shards
     allb = [list(b) + [v] for b, v in zip(bufs, buf_valid)]
     for b in bufs:
         b.clear()
@@ -137,12 +137,13 @@ def shuffle_rows(key_cols: Sequence[Sequence[MaskedCol]],
                             List[torch.Tensor]]:
     """Rows of (keys ++ payload) to their key-owner shards.
 
-    ``key_cols[s]`` and ``payload_cols[s]`` are shard s's columns; rows
-    whose ``row_valid`` is False stay home.  Returns, per shard, the
-    received columns (keys ++ payload, P * cap rows), their validity and
-    the shard's overflow count."""
+    ``key_cols[s]`` and ``payload_cols[s]`` are local shard s's columns;
+    ``num_shards`` is the global shard count (the destinations); rows
+    whose ``row_valid`` is False stay home.  Returns, per local shard,
+    the received columns (keys ++ payload, P * cap rows), their validity
+    and the shard's overflow count."""
     sends, valids, overflows, positions = [], [], [], None
-    for s in range(num_shards):
+    for s in range(len(key_cols)):
         cols = list(key_cols[s]) + list(payload_cols[s])
         dest = bucket_for_shards(key_hash(key_cols[s]), num_shards)
         rv = row_valid[s] if row_valid is not None else None

@@ -319,10 +319,6 @@ class Table:
                  fragment_size: int, process_local: bool = False) -> None:
         if not columns:
             raise ValueError("table must have at least one column")
-        if process_local:
-            raise NotImplementedError(
-                "process-local tables need multi-host sessions "
-                "(ROADMAP A9b)")
         nrows = len(columns[0])
         if any(len(c) != nrows for c in columns):
             raise ValueError("ragged columns")
@@ -331,6 +327,13 @@ class Table:
         self.columns: List[Column] = list(columns)
         self._by_name: Dict[str, Column] = {c.info.name: c for c in columns}
         self.nrows = nrows
+        # multi-controller ingest: the host data holds only this rank's
+        # rows and ``nrows`` counts them; ``rank_rows`` (every rank's
+        # count, in rank order) and the global column ranges come from
+        # ``set_process_layout`` at ingest
+        self.process_local = process_local
+        self.rank_rows: List[int] = [nrows]
+        self._global_ranges: Optional[Dict[str, tuple]] = None
         self.fragment_size = max(1, fragment_size)
         self._stats: Dict[Tuple[int, int], FragmentStats] = {}
         self._stats_lock = threading.Lock()
@@ -386,9 +389,26 @@ class Table:
                 self._stats[key] = st
         return st
 
+    @property
+    def global_nrows(self) -> int:
+        """Rows over every rank (``nrows`` but for a process-local
+        table)."""
+        return sum(self.rank_rows) if self.process_local else self.nrows
+
+    def set_process_layout(self, rank_rows: Sequence[int],
+                           ranges: Dict[str, tuple]) -> None:
+        """Every rank's row count and each column's (min, max, has_nulls)
+        over every rank, for a process-local table: the planner reads
+        these, so every rank plans alike."""
+        self.rank_rows = [int(n) for n in rank_rows]
+        self._global_ranges = dict(ranges)
+
     def column_range(self, name: str
                      ) -> Tuple[Optional[float], Optional[float], bool]:
-        """Whole-table (min, max, has_nulls) from fragment stats."""
+        """Whole-table (min, max, has_nulls) from fragment stats (over
+        every rank for a process-local table)."""
+        if self._global_ranges is not None and name in self._global_ranges:
+            return self._global_ranges[name]
         lo: Optional[float] = None
         hi: Optional[float] = None
         has_nulls = False
@@ -404,6 +424,10 @@ class Table:
         """Append rows, one column per data column in order (the hidden
         rowid is rebuilt on demand).  Array columns pad both parts to the
         wider width, the pads absent."""
+        if self.process_local:
+            raise ValueError(f"process_local table {self.name!r} takes no "
+                             "appends: its ranks' row counts are fixed at "
+                             "ingest")
         data_cols = [c for c in self.columns if not c.info.is_rowid]
         if len(columns) != len(data_cols):
             raise ValueError("append needs one column per table column")

@@ -742,3 +742,44 @@ def test_dist_cuda_session_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         hdk_tpu_torch.HDK(device="cuda", **{"dist.enable": True,
                                             "dist.num_devices": 4})
+
+
+def test_multi_host_session_on_one_card(cuda):
+    """Two ranks of a multi-host session share the card, joined over
+    gloo with operands staged through pinned host memory
+    (tests/test_torch_multihost.py is the worker): the reference
+    worker's checks, each even-split query on its route and equal to a
+    one-process 4-shard session on the card, the reference shapes over a
+    process-local table equal to one device, and K1 and K4 launched
+    inside both ranks."""
+    import test_torch_multihost as mh
+
+    ranks = mh.run_ranks(device="cuda", timeout=900)
+    one = hdk_tpu_torch.HDK(device="cuda", **mh.CONFIG)
+    mh.load_global(one)
+    single = hdk_tpu_torch.HDK(device="cuda")
+    rt, inner = mh.shapes_data()
+    single.import_pydict(rt, name="rt")
+    single.import_pydict(inner, name="rt_inner")
+    for r, got in enumerate(ranks):
+        assert got["devices"] == ["cuda:0", "cuda:0"]
+        assert got["mesh"] == [4, 2, 2 * r, 2]
+        assert got["perfect"] == [[4, 4, 4, 4], [24, 28, 32, 36]]
+        assert got["launches"]["count_hist"] > 0
+        assert got["launches"]["groupby_sums"] > 0
+        assert got["transport_stats"]["staged_bytes"] > 0
+    for label, q, attr, route in mh.PARITY:
+        want = mh.payload(one.sql(q))
+        assert getattr(one._executor, attr) == route, label
+        for got in ranks:
+            assert got["parity"][label]["routes"][attr] == route, label
+            mh.same(got["parity"][label]["result"], want, label,
+                    ordered="ORDER BY" in q)
+    for label, q in mh.E2E.items():
+        want = mh.payload(one.sql(q))
+        for got in ranks:
+            mh.same(got["e2e"][label], want, label, ordered=True)
+    for i, q in enumerate(mh.QUERIES):
+        want = mh.payload(single.sql(q))
+        for got in ranks:
+            mh.same(got["shapes"][i], want, q)

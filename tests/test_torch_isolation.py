@@ -119,25 +119,15 @@ def test_streaming_and_interop_load_neither_pandas_nor_jax():
     assert got["substr"] == ["bc1", "bc2"]
 
 
-# public calls and parameters of hdk_tpu's facade the port leaves to
-# multi-host sessions (ROADMAP A9b); the port's ``import_pydict`` takes
-# ``process_local`` only to raise
-_A9_ONLY = {
-    # process-local ingest shards a table across hosts
-    "process_local",
-    # unifies the string dictionaries of process-local shards
-    "_unify_process_local_dicts",
-}
-
-
 def _public(cls):
     return {n for n in dir(cls) if not n.startswith("_")}
 
 
 def test_facade_parity():
     """Every public method and property of hdk_tpu's HDK and QueryResult
-    exists in the port, but for the multi-device ones; and each facade
-    method takes the reference's parameters (plus the port's ``device``)."""
+    exists in the port, and each facade method takes the reference's
+    parameters (plus the port's ``device``); so does the unification of
+    process-local dictionaries."""
     import inspect
 
     import hdk_tpu
@@ -145,34 +135,65 @@ def test_facade_parity():
 
     for ref, port in ((hdk_tpu.HDK, hdk_tpu_torch.HDK),
                       (hdk_tpu.QueryResult, hdk_tpu_torch.QueryResult)):
-        missing = _public(ref) - _public(port) - _A9_ONLY
+        missing = _public(ref) - _public(port)
         assert not missing, f"{port.__name__} lacks {sorted(missing)}"
-        for name in sorted(_public(ref)):
+        names = sorted(_public(ref))
+        if ref is hdk_tpu.HDK:
+            names.append("_unify_process_local_dicts")
+        for name in names:
             a, b = getattr(ref, name), getattr(port, name)
             if not inspect.isfunction(a):
                 continue
-            want = [p for p in inspect.signature(a).parameters
-                    if p not in _A9_ONLY]
-            got = [p for p in inspect.signature(b).parameters
-                   if p not in _A9_ONLY]
+            want = list(inspect.signature(a).parameters)
+            got = list(inspect.signature(b).parameters)
             if name == "__init__":
                 got.remove("device")
             assert got == want, (port.__name__, name, got, want)
-    ref_params = inspect.signature(hdk_tpu.HDK.import_pydict).parameters
-    assert "process_local" in ref_params
-    assert hasattr(hdk_tpu.HDK, "_unify_process_local_dicts")
+    assert "process_local" in inspect.signature(
+        hdk_tpu_torch.HDK.import_pydict).parameters
 
 
-def test_multi_host_calls_raise_naming_a9b():
-    import hdk_tpu_torch
+_ONE_RANK_PROBE = r"""
+import json, socket, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import hdk_tpu_torch
+from hdk_tpu_torch.parallel import mesh
+s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]
+s.close()
+hdk = hdk_tpu_torch.HDK(device="cpu", **{
+    "dist.enable": True, "dist.multi_host": True, "dist.num_devices": 2,
+    "dist.coordinator_address": f"127.0.0.1:{port}",
+    "dist.num_processes": 1, "dist.process_id": 0, "dist.timeout_s": 60})
+hdk.import_pydict({"k": np.array([1, 2, 1, 3]),
+                   "s": np.array(["a", "b", "a", "c"])}, name="pl",
+                  process_local=True)
+out = hdk.sql("SELECT s, COUNT(*) AS c, SUM(k) AS sk FROM pl GROUP BY s "
+              "ORDER BY s").to_numpy()
+print(json.dumps({
+    "world": mesh.process_count(),
+    "mesh": hdk._executor._mesh.size,
+    "process_local": hdk._schema.get("pl").process_local,
+    "s": [str(x) for x in out["s"]],
+    "c": [int(x) for x in out["c"]],
+    "sk": [int(x) for x in out["sk"]],
+    "modules": sorted(m for m in sys.modules
+                      if m in ("jax", "hdk_tpu")
+                      or m.startswith(("jax.", "hdk_tpu."))),
+}))
+"""
 
-    with pytest.raises(NotImplementedError, match="A9b"):
-        hdk_tpu_torch.HDK(device="cpu", **{"dist.enable": True,
-                                           "dist.multi_host": True})
-    hdk = hdk_tpu_torch.HDK(device="cpu", **{"dist.enable": True,
-                                             "dist.num_devices": 2})
-    with pytest.raises(NotImplementedError, match="A9b"):
-        hdk.import_pydict({"k": [1, 2]}, name="pl", process_local=True)
+
+def test_multi_host_calls_work_in_a_one_rank_session():
+    """``dist.multi_host`` joins a job of one rank over gloo (in a fresh
+    interpreter, whose process group ends with it), and
+    ``import_pydict(process_local=True)`` ingests that rank's rows."""
+    got = _run(_ONE_RANK_PROBE)
+    assert got["world"] == 1 and got["mesh"] == 2
+    assert got["process_local"] is True
+    assert got["s"] == ["a", "b", "c"]
+    assert got["c"] == [2, 1, 1] and got["sk"] == [2, 2, 3]
+    assert got["modules"] == []
 
 
 _DIST_PROBE = r"""
