@@ -98,21 +98,38 @@ Phases, each printed as it runs:
      one-device warm ms, the transport's staged bytes and ms and each
      rank's peak device memory.  ``--phase12`` runs phase 12 alone after
      the build (``--sizes '{"hn1_rows": ...}'`` cuts a size), without
-     the contract lines.
+     the contract lines;
+ 13. the port's bench: ``bench_torch.py`` (taxi Q1-Q4, 10M rows, a
+     process per query), ``bench_suite_torch.py --scale 1.0`` (the
+     north-star configs: the 100M x 10M join, the zipf join, the
+     100M-row group-by over 50M keys with and without a top-100, TPC-H
+     Q1/Q6 and Q3 over 60M lineitem rows), ``bench_scaling_torch.py``
+     (2M rows over 1, 2 and 4 shards) and the ingest, NDV and TPC-H Q3
+     tools at sizes cut to fit (the cuts are logged), each a process of
+     its own that must exit 0 with its record's every key (all but the
+     suite at once, so their times are no measurement; the suite
+     alone).  The processes that time bench_torch.py's queries and the
+     suite's configs hold each result against its numpy oracle
+     (``bench_common_torch.py``) at the size they timed, and count the
+     kernel launches of their timed runs.  ``--phase13`` runs it alone
+     after the build (``--sizes '{"suite_scale": 0.1}'`` cuts a size),
+     without the contract lines.
 Phases 5-6 are the sort route, phase 7 the join path, phase 8 the
-window path, phase 9 the controls, phase 10 the facade and phases 11
-and 12 the multi-device and multi-host paths: each phase's kernel
-launches count apart from the others' (phase 12's inside its ranks,
+window path, phase 9 the controls, phase 10 the facade, phases 11
+and 12 the multi-device and multi-host paths and phase 13 the bench's:
+each phase's kernel launches count apart from the others' (phase 12's
+inside its ranks and phase 13's inside its timed query processes, each
 summed by the parent), every kernel must launch on phases 4, 5-6, 11
 and 12, the kernels
 of TPC-H Q3 on phase 7, W3's (K1 and K4) on phase 8, the streamed Q1's
-(K1, K3 and K4) on phase 9, and S1's (K1, K3 and K4) and U1's (K1 and
-K4) on phase 10.  Each phase ends with
+(K1, K3 and K4) on phase 9, S1's (K1, K3 and K4) and U1's (K1 and
+K4) on phase 10, and K1, K3 and K4 on phase 13.  Each phase ends with
 the device cache's evictions and resident bytes.  The line
 before the last is a JSON object with the per-kernel results (every
 phase-3 case under ``cases``); the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
-non-zero and prints no result.  Needs numpy and torch; imports neither
+non-zero and prints no result.  Needs numpy, torch and
+bench_common_torch.py beside it (the numpy oracles); imports neither
 jax, pandas nor pyarrow (but for the string columns of phases 7 and 10
 and phase 10's Arrow import, which go through pyarrow where it is
 installed).
@@ -129,6 +146,11 @@ import time
 
 import numpy as np
 import torch
+
+from bench_common_torch import (check, close, epoch, equal, fail, group_ids,
+                                hn_check, hn_oracle, q3_check, q3_oracle,
+                                taxi_check, tpch_q1_check, tpch_q6_check,
+                                years)
 
 TAXI_ROWS = 100_000_000
 LINEITEM_ROWS = 60_000_000
@@ -156,15 +178,6 @@ _START = time.perf_counter()
 def log(msg: str) -> None:
     """A progress line, stamped with the seconds since the script began."""
     print(f"[{time.perf_counter() - _START:7.1f} s] {msg}", flush=True)
-
-
-def fail(msg: str) -> None:
-    raise RuntimeError(msg)
-
-
-def check(cond: bool, msg: str) -> None:
-    if not cond:
-        fail(msg)
 
 
 def gpu_line() -> str:
@@ -331,51 +344,6 @@ TPCH_Q3 = (
     "ORDER BY revenue DESC, o_orderdate LIMIT 10")
 J5_IN = ("SELECT COUNT(*), SUM(amt) FROM trips_j "
          "WHERE k IN (SELECT k FROM payments_j WHERE fee > 4.0)")
-
-
-def epoch(ts: str) -> int:
-    return int(np.datetime64(ts, "s").astype(np.int64))
-
-
-def years(secs: np.ndarray) -> np.ndarray:
-    return secs.astype("datetime64[s]").astype("datetime64[Y]").astype(
-        np.int64) + 1970
-
-
-def group_ids(*keys: np.ndarray):
-    """(unique key rows in lexicographic order, inverse ids), through one
-    mixed-radix code per row (np.unique over rows is far slower)."""
-    keys = [k.astype(np.int64) for k in keys]
-    lows = [int(k.min()) for k in keys]
-    sizes = [int(k.max()) - lo + 1 for k, lo in zip(keys, lows)]
-    code = np.zeros(len(keys[0]), np.int64)
-    for k, lo, size in zip(keys, lows, sizes):
-        code = code * size + (k - lo)
-    present = np.bincount(code) > 0
-    codes = np.flatnonzero(present)
-    rank = np.cumsum(present) - 1
-    cols = []
-    for lo, size in zip(reversed(lows), reversed(sizes)):
-        cols.append(codes % size + lo)
-        codes = codes // size
-    return np.stack(cols[::-1], axis=1), rank[code]
-
-
-def close(got, want, rtol: float, what: str) -> None:
-    got = np.asarray(got, dtype=np.float64)
-    want = np.asarray(want, dtype=np.float64)
-    check(got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}")
-    check(np.allclose(got, want, rtol=rtol, atol=0.0),
-          f"{what}: max rel err "
-          f"{np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-300))}"
-          f" above {rtol}")
-
-
-def equal(got, want, what: str) -> None:
-    got = np.asarray(got)
-    want = np.asarray(want)
-    check(got.shape == want.shape and np.array_equal(got, want),
-          f"{what}: differs from the oracle")
 
 
 # -- phase 3 ------------------------------------------------------------
@@ -566,49 +534,28 @@ def taxi_phase(hdk_mod, hdk, data, card, hist):
     ht = hdk.import_pydict(
         dict(data), name="trips",
         schema={"pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)})
-    pc = data["passenger_count"].astype(np.int64)
-    yr = years(data["pickup_datetime"])
 
     res = timed_query(lambda: ht.agg("cab_type", "count").run(), card,
                       "taxi_q1", TAXI_ROWS, hist, [])
-    out = res.to_numpy()
-    equal(out["cab_type"], [0, 1], "taxi_q1 keys")
-    equal(out["count"], np.bincount(data["cab_type"], minlength=2),
-          "taxi_q1 count")
+    taxi_check("q1", res.to_numpy(), data)
 
     res = timed_query(
         lambda: ht.agg("passenger_count", "avg(total_amount)").run(), card,
         "taxi_q2", TAXI_ROWS, hist, ["groupby_sums", "count_hist"])
-    out = res.to_numpy()
-    cnt = np.bincount(pc, minlength=9)
-    sums = np.bincount(pc, weights=data["total_amount"].astype(np.float64),
-                       minlength=9)
-    equal(out["passenger_count"], np.arange(9), "taxi_q2 keys")
-    close(out["total_amount_avg"], sums / cnt, 1e-6, "taxi_q2 avg")
+    taxi_check("q2", res.to_numpy(), data)
 
     year_expr = lambda: ht["pickup_datetime"].extract("year").name("y")
     res = timed_query(
         lambda: ht.agg(["passenger_count", year_expr()], "count").run(),
         card, "taxi_q3", TAXI_ROWS, hist, ["count_hist"])
-    out = res.to_numpy()
-    uniq, inv = group_ids(pc, yr)
-    equal(np.stack([out["passenger_count"], out["y"]], 1), uniq,
-          "taxi_q3 keys")
-    equal(out["count"], np.bincount(inv), "taxi_q3 count")
+    taxi_check("q3", res.to_numpy(), data)
 
-    dist = data["trip_distance"].astype(np.int32)
     res = timed_query(
         lambda: ht.agg(["passenger_count", year_expr(),
                         ht["trip_distance"].cast("int32").name("dist")],
                        "count").sort(("count", "desc")).run(),
         card, "taxi_q4", TAXI_ROWS, hist, ["count_hist"])
-    out = res.to_numpy()
-    uniq, inv = group_ids(pc, yr, dist)
-    counts = np.bincount(inv)
-    order = np.argsort(-counts, kind="stable")  # ties keep key order
-    equal(np.stack([out["passenger_count"], out["y"], out["dist"]], 1),
-          uniq[order], "taxi_q4 keys")
-    equal(out["count"], counts[order], "taxi_q4 count")
+    taxi_check("q4", res.to_numpy(), data)
     hdk.drop_table("trips")
 
 
@@ -660,60 +607,6 @@ def tpch_phase(hdk_mod, hdk, card, hist):
     equal(count, [above.size], "scalar_subquery count")
     close(total, [above.sum()], 1e-9, "scalar_subquery sum")
     hdk.drop_table("lineitem")
-
-
-ORACLE_SLICE = 50_000_000  # rows a numpy oracle reads at a time
-
-
-def tpch_q1_check(cols, li, label):
-    """TPC-H Q1's ten columns against numpy, read in slices of the table
-    (the 6 (returnflag, linestatus) groups): keys, counts and the integer
-    sum exactly, float sums and averages to rtol 1e-9."""
-    cut = epoch("1998-09-02T00:00:00")
-    cnt = np.zeros(6, np.int64)
-    qsum = np.zeros(6, np.int64)
-    fs = np.zeros((4, 6))
-    for s in range(0, li["l_shipdate"].size, ORACLE_SLICE):
-        sl = slice(s, s + ORACLE_SLICE)
-        keep = li["l_shipdate"][sl] <= cut
-        code = (li["l_returnflag"][sl][keep].astype(np.int64) * 2
-                + li["l_linestatus"][sl][keep])
-        price = li["l_extendedprice"][sl][keep]
-        disc = li["l_discount"][sl][keep]
-        tax = li["l_tax"][sl][keep]
-        cnt += np.bincount(code, minlength=6)
-        qsum += np.bincount(code, weights=li["l_quantity"][sl][keep],
-                            minlength=6).astype(np.int64)
-        for j, w in enumerate((price, price * (1 - disc),
-                               price * (1 - disc) * (1 + tax), disc)):
-            fs[j] += np.bincount(code, weights=w, minlength=6)
-    present = cnt > 0
-    codes = np.flatnonzero(present)
-    cnt, qsum, fs = cnt[present], qsum[present], fs[:, present]
-    equal(np.stack([cols[0], cols[1]], 1),
-          np.stack([codes // 2, codes % 2], 1), f"{label} keys")
-    equal(cols[2], qsum, f"{label} sum_qty")
-    close(cols[3], fs[0], 1e-9, f"{label} sum_base_price")
-    close(cols[4], fs[1], 1e-9, f"{label} sum_disc_price")
-    close(cols[5], fs[2], 1e-9, f"{label} sum_charge")
-    close(cols[6], qsum / cnt, 1e-9, f"{label} avg_qty")
-    close(cols[7], fs[0] / cnt, 1e-9, f"{label} avg_price")
-    close(cols[8], fs[3] / cnt, 1e-9, f"{label} avg_disc")
-    equal(cols[9], cnt, f"{label} count")
-
-
-def tpch_q6_check(res, li, label):
-    """TPC-H Q6's revenue against numpy (slices of the table), rtol 1e-9."""
-    (got,) = res.to_numpy().values()
-    lo, hi = epoch("1994-01-01T00:00:00"), epoch("1995-01-01T00:00:00")
-    want = 0.0
-    for s in range(0, li["l_shipdate"].size, ORACLE_SLICE):
-        sl = slice(s, s + ORACLE_SLICE)
-        ship, disc = li["l_shipdate"][sl], li["l_discount"][sl]
-        sel = ((ship >= lo) & (ship < hi) & (disc >= 0.05) & (disc <= 0.07)
-               & (li["l_quantity"][sl] < 24))
-        want += np.sum(li["l_extendedprice"][sl][sel] * disc[sel])
-    close(got, [want], 1e-9, f"{label} revenue")
 
 
 def nulls_phase(hdk, card, hist):
@@ -786,32 +679,23 @@ def high_ndv_phase(hdk, card, hist, rows=HIGH_NDV_ROWS, keys=HIGH_NDV_KEYS,
                    want=("count_hist", "seg_sums_exact")):
     t0 = time.perf_counter()
     data = gen_high_ndv(rows, keys)
-    counts = np.bincount(data["k"], minlength=keys)
-    sums = np.bincount(data["k"], weights=data["v"], minlength=keys)
-    present = np.flatnonzero(counts)
-    log(f"high-NDV data: {rows} rows, {present.size} distinct keys of "
+    oracle = hn_oracle(data, keys)
+    log(f"high-NDV data: {rows} rows, {oracle[0].size} distinct keys of "
         f"{keys}; data and oracle in {time.perf_counter() - t0:.1f} s")
     ht = hdk.import_pydict(data, name="ndv_t")
 
     res = timed_query(lambda: ht.agg("k", "count", "sum(v)").run(), card,
                       "HN1", rows, hist, want)
-    out = res.to_numpy()
-    equal(out["k"], present, "HN1 keys")
-    equal(out["count"], counts[present], "HN1 count")
-    equal(out["v_sum"], sums[present].astype(np.int64), "HN1 sum(v)")
+    hn_check("HN1", res.to_numpy(), oracle)
     log(f"HN1: group buffer cap {hdk._executor._groupby_cap} for "
-        f"{present.size} groups, NDV estimate "
+        f"{oracle[0].size} groups, NDV estimate "
         f"{hdk._executor._ndv_estimate}")
-    del out, res
+    del res
 
     res = timed_query(
         lambda: ht.agg("k", "count").sort(("count", "desc"), limit=100).run(),
         card, "HN2", rows, hist, [k for k in want if k == "count_hist"])
-    out = res.to_numpy()
-    # ties (Poisson counts) keep the key order
-    top = np.argsort(-counts[present], kind="stable")[:100]
-    equal(out["k"], present[top], "HN2 keys")
-    equal(out["count"], counts[present][top], "HN2 count")
+    hn_check("HN2", res.to_numpy(), oracle)
     hdk.drop_table("ndv_t")
 
 
@@ -1262,33 +1146,8 @@ def join_phase(hdk_mod, card, hist, device="cuda", scale=1.0,
     log(f"join J4_tpch_q3: warm_ms={lat * 1e3!r} against "
         f"{J4_WARM_MS_BEFORE_SKIP!r} before build subtrees were skipped; "
         f"skipped nodes={len(ex._recycled_nodes)} [{card}]")
-    out = res.to_numpy()
-    top, revenue, orders = q3_oracle(*tables.values())
-    equal(out["l_orderkey"], top, "J4 l_orderkey")
-    close(out["revenue"], revenue, 1e-6, "J4 revenue")
-    equal(out["o_orderdate"], orders["o_orderdate"][top], "J4 o_orderdate")
-    equal(out["o_shippriority"], orders["o_shippriority"][top],
-          "J4 o_shippriority")
+    q3_check("J4", res.to_numpy(), tables)
     drop_tables(hdk, *tables)
-
-
-def q3_oracle(customer, orders, lineitem):
-    """(l_orderkey, revenue) of TPC-H Q3's ten rows, and the orders table:
-    the product in float32 as the engine computes it, summed in float64;
-    ties of revenue keep the earlier order date."""
-    cut = epoch("1995-03-15T00:00:00")
-    cust_ok = customer["c_mktsegment"] == "BUILDING"
-    ord_ok = (orders["o_orderdate"] < cut) & cust_ok[orders["o_custkey"]]
-    lk = lineitem["l_orderkey"]
-    li_ok = (lineitem["l_shipdate"] > cut) & ord_ok[lk]
-    rev = (lineitem["l_extendedprice"][li_ok]
-           * (np.float32(1) - lineitem["l_discount"][li_ok]))
-    revenue = np.bincount(lk[li_ok], weights=rev.astype(np.float64),
-                          minlength=ord_ok.size)
-    keys = np.flatnonzero(np.bincount(lk[li_ok], minlength=ord_ok.size))
-    top = keys[np.lexsort((orders["o_orderdate"][keys],
-                           -revenue[keys]))[:10]]
-    return top, revenue[top], orders
 
 
 # -- phase 8: window functions and array columns ---------------------------
@@ -2863,6 +2722,200 @@ def multihost_phase(card, dist_stats, device="cuda", sizes=None,
     return totals
 
 
+# -- phase 13: the port's bench ---------------------------------------------
+
+BENCH_KERNELS = ("groupby_sums", "seg_sums_exact", "count_hist")
+# each script's sizes: the bench's defaults, where they fit; the cuts
+# (ingest, NDV, the two Q3 tools) are logged
+BENCH_SIZES = {"bench_rows": 10_000_000, "suite_scale": 1.0,
+               "scaling_rows": 2_000_000, "ingest_rows": 1_000_000,
+               "ingest_reps": 1, "dict_rows": 1_000_000,
+               "ndv_rows": 10_000_000, "q3_scale": 0.1, "q3_runs": 4}
+BENCH_DEFAULTS = {"ingest_rows": 10_000_000, "ingest_reps": 3,
+                  "dict_rows": 4_000_000, "ndv_rows": 100_000_000,
+                  "q3_scale": 1.0, "q3_runs": 8}
+BENCH_TIMEOUT_S = 600
+# the scripts whose records phase 13 reads
+BENCH_RECORDS = {"bench_torch": "bench_torch.py",
+                 "bench_suite": "bench_suite_torch.py",
+                 "bench_scaling": "bench_scaling_torch.py",
+                 "bench_ingest": "tools/bench_ingest_torch.py",
+                 "ndv_overhead": "tools/ndv_overhead_torch.py"}
+
+
+def record_keys(rel: str):
+    """``RECORD_KEYS`` of the script at ``rel``: the keys its record has."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(rel)[:-3],
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.RECORD_KEYS
+
+
+def start_script(label: str, argv, env=None):
+    """``python argv`` from the repository's root, started in a process
+    group of its own (so it can be killed whole, with the processes the
+    script starts)."""
+    proc = subprocess.Popen(
+        [sys.executable, *argv], cwd=os.path.dirname(os.path.abspath(
+            __file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, **(env or {})}, start_new_session=True)
+    return label, time.perf_counter(), proc
+
+
+def stop_script(job) -> None:
+    import signal
+
+    if job[2].poll() is None:
+        os.killpg(job[2].pid, signal.SIGKILL)
+        job[2].communicate()
+
+
+def finish_script(job) -> str:
+    """Wait for a started script (at most ``BENCH_TIMEOUT_S`` from its
+    start); fails unless it exits 0.  Returns its standard output."""
+    label, t0, proc = job
+    try:
+        out, err = proc.communicate(
+            timeout=max(1.0, BENCH_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_script(job)
+        fail(f"{label}: still running after {BENCH_TIMEOUT_S} s (killed)")
+    check(proc.returncode == 0, f"{label}: exit code {proc.returncode}; "
+                                f"stderr tail:\n{err[-3000:]}")
+    log(f"{label}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def run_scripts(scripts) -> dict:
+    """Run (label, argv, env) scripts at once; label -> standard output.
+    Every one still running is killed when one fails."""
+    jobs = [start_script(*sc) for sc in scripts]
+    try:
+        return {job[0]: finish_script(job) for job in jobs}
+    finally:
+        for job in jobs:
+            stop_script(job)
+
+
+def json_lines(out: str):
+    return [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+
+
+def has_keys(rec: dict, keys, label: str) -> None:
+    missing = [k for k in keys if k not in rec]
+    check(not missing, f"{label}: record lacks {missing}")
+
+
+def bench_scripts(device: str, sz: dict, out_dir: str):
+    """Every bench script of the port as a process of its own, each
+    required to exit 0 and print its record with every key: all but the
+    suite at once (their times, taken while they share the card and the
+    host, are no measurement), then the suite alone.  Returns the records
+    of bench_torch.py and the suite, whose processes held each timed
+    query's result against its numpy oracle and counted its kernel
+    launches."""
+    keys = {n: record_keys(rel) for n, rel in BENCH_RECORDS.items()}
+    dev = ["--device", device]
+    path = {n: os.path.join(out_dir, n + ".json")
+            for n in ("bench_suite", "bench_scaling", "bench_ingest",
+                      "ndv_overhead")}
+    q3 = ["--scale", str(sz["q3_scale"]), *dev]
+    outs = run_scripts([
+        ("bench_torch", ["bench_torch.py", *dev, "--out-dir", out_dir],
+         {"BENCH_ROWS": str(sz["bench_rows"]), "BENCH_ISOLATED": "1"}),
+        ("bench_scaling", ["bench_scaling_torch.py", "--rows",
+                           str(sz["scaling_rows"]), "--devices", "1", "2",
+                           "4", *dev, "--out", path["bench_scaling"]], None),
+        ("bench_ingest", ["tools/bench_ingest_torch.py", *dev, "--out",
+                          path["bench_ingest"]],
+         {"INGEST_ROWS": str(sz["ingest_rows"]),
+          "INGEST_REPS": str(sz["ingest_reps"]),
+          "INGEST_DICT_ROWS": str(sz["dict_rows"])}),
+        ("ndv_overhead", ["tools/ndv_overhead_torch.py", *dev, "--out",
+                          path["ndv_overhead"]],
+         {"NDV_ROWS": str(sz["ndv_rows"])}),
+        ("q3_analyze", ["tools/q3_analyze_torch.py", *q3, "--runs",
+                        str(sz["q3_runs"])], None),
+        ("q3_stages", ["tools/q3_stages_torch.py", *q3], None)])
+
+    (taxi,) = json_lines(outs["bench_torch"])[-1:]
+    has_keys(taxi, keys["bench_torch"], "bench_torch.py")
+    check(taxi["rows"] == sz["bench_rows"] and taxi["mode"] == "isolated",
+          f"bench_torch.py: rows {taxi['rows']}, mode {taxi['mode']}")
+    log(f"bench_torch record: {json.dumps(taxi)}")
+    with open(path["bench_scaling"]) as f:
+        rec = json.load(f)
+    has_keys(rec, keys["bench_scaling"], "bench_scaling_torch.py")
+    check(sorted(rec["seconds_per_query"]) == ["1", "2", "4"],
+          "bench_scaling_torch.py: a shard count is missing")
+    log(f"bench_scaling: cards {rec['cards_by_shards']}, efficiency vs 1 "
+        f"shard {json.dumps(rec['scaling_efficiency_vs_1dev'])}, omitted "
+        f"{len(rec['omitted_non_comparable'])}")
+    for name in ("bench_ingest", "ndv_overhead"):
+        (rec,) = json_lines(outs[name])[-1:]
+        has_keys(rec, keys[name], name)
+        log(f"{name} record: {json.dumps(rec)}")
+    out = outs["q3_analyze"]
+    runs = [l for l in out.splitlines() if l.startswith("run ")]
+    check(len(runs) == sz["q3_runs"] and "=== EXPLAIN ANALYZE ===" in out,
+          f"q3_analyze_torch.py: {len(runs)} runs, output:\n{out[-2000:]}")
+    log("q3_analyze: " + " | ".join(runs))
+    stages = [l for l in outs["q3_stages"].splitlines() if ": warm " in l]
+    check([l.split(":")[0] for l in stages]
+          == ["preagg", "ord_cust", "q3", "q3_original_plan"],
+          f"q3_stages_torch.py: output:\n{outs['q3_stages'][-2000:]}")
+    log("q3_stages: " + " | ".join(stages))
+
+    label = f"bench_suite_torch.py --scale {sz['suite_scale']}"
+    recs = json_lines(run_scripts([(label, [
+        "bench_suite_torch.py", "--scale", str(sz["suite_scale"]), *dev,
+        "--out", path["bench_suite"]], None)])[label])
+    check(len(recs) == 7, f"bench_suite_torch.py: {len(recs)} records of 7")
+    for r in recs:
+        has_keys(r, keys["bench_suite"],
+                 f"bench_suite_torch.py {r.get('config')}")
+        log(f"bench_suite record: {json.dumps(r)}")
+    for r in [taxi, *recs]:
+        check(r["result_check"] == "numpy",
+              f"{r.get('config', 'taxi')}: result_check "
+              f"{r['result_check']!r}")
+    return [taxi, *recs]
+
+
+def bench_phase(card, hist, device="cuda", sizes=None, want=BENCH_KERNELS):
+    """Phase 13: the port's bench scripts, each in a process of its own on
+    the card (their records logged).  bench_torch.py's query processes
+    and the suite's config processes set the kernel counts to 0 before
+    their timed runs, read them after, and hold each result against its
+    numpy oracle at the size they timed; K1, K3 and K4 must launch there.
+    Returns those launches, summed."""
+    t_phase = time.perf_counter()
+    sz = {**BENCH_SIZES, **(sizes or {})}
+    cuts = [f"{k} {sz[k]} of {v}" for k, v in BENCH_DEFAULTS.items()
+            if sz[k] != v]
+    log(f"phase 13: the bench on {device} [{card}]; sizes {sz}; cut: "
+        f"{'; '.join(cuts) or 'nothing'}")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "bench_torch_out", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    recs = bench_scripts(device, sz, out_dir)
+    launches = {name: 0 for name in hist.launches()}
+    for r in recs:
+        for name, n in r["launches"].items():
+            launches[name] += n
+    for name in want:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the bench path")
+    log(f"bench path: {len(recs)} timed queries equal to numpy at the "
+        f"timed sizes; kernel launches {launches}; phase 13 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # slots of each kernel's headline case in the kernels line
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
@@ -2910,6 +2963,11 @@ def main() -> None:
         # phase 12 alone, at the sizes given (no contract line)
         del hdk
         multihost_phase(card, {}, sizes=json.loads(_arg("--sizes", "{}")))
+        return
+    if "--phase13" in sys.argv:
+        # phase 13 alone, at the sizes given (no contract line)
+        del hdk
+        bench_phase(card, hist, sizes=json.loads(_arg("--sizes", "{}")))
         return
 
     t0 = time.perf_counter()
@@ -3021,6 +3079,13 @@ def main() -> None:
     # counted inside the ranks and summed here
     mh_launches = multihost_phase(card, dist_stats)
 
+    # phase 13: the port's bench, its scripts as processes on the card,
+    # launches counted inside the timed query processes and summed here
+    torch.cuda.empty_cache()
+    bench_launches = bench_phase(card, hist)
+    check("jax" not in sys.modules, "jax was imported")
+    log_device_cache("phase 13")
+
     kernels = []
     for name, rec in report.items():
         # the headline case: taxi Q4's segment count, the kernel's widest
@@ -3044,6 +3109,7 @@ def main() -> None:
             "facade_path_launches": facade_launches[name],
             "dist_path_launches": dist_launches[name],
             "multihost_path_launches": mh_launches[name],
+            "bench_path_launches": bench_launches[name],
             "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it

@@ -735,6 +735,35 @@ def test_dist_session_on_one_card(cuda, monkeypatch):
     _same_results([sql for sql, _ in queries], out)
 
 
+def test_benchtime_synchronizes_every_shards_card(cuda, monkeypatch):
+    """``benchtime`` on a 4-shard session: every card the shards live on
+    is synchronized (all four, where the host has four cards), after
+    the join's lazy columns are gathered."""
+    from hdk_tpu_torch.utils import benchtime
+
+    rng = np.random.default_rng(3)
+    hdk = hdk_tpu_torch.HDK(device="cuda", **{
+        "dist.enable": True, "dist.num_devices": 4})
+    f = hdk.import_pydict({"k": rng.integers(0, 1000, 200_000),
+                           "v": rng.normal(size=200_000)}, name="f")
+    d = hdk.import_pydict({"k": np.arange(1000),
+                           "w": rng.normal(size=1000)}, name="d")
+    synced = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda dev=None: (synced.append(dev), real(dev)))
+    mesh = hdk._executor._mesh
+    for q in (lambda: f.agg("k", "count", "sum(v)").run(),
+              lambda: f.join(d, "k", "k").run()):
+        synced.clear()
+        res = benchtime.sync(q())
+        assert set(synced) == set(mesh.devices)
+        assert type(res._table.columns) is list or all(
+            list.__getitem__(res._table.columns, i) is not None
+            for i in range(len(res._table.columns)))
+    assert len(set(mesh.devices)) == min(4, torch.cuda.device_count())
+
+
 def test_dist_cuda_session_without_a_card_raises(monkeypatch):
     """``device="cuda"`` with no card raises: a distributed session never
     builds a CPU mesh in its place."""

@@ -238,6 +238,32 @@ def test_dist_session_loads_neither_jax_nor_hdk_tpu():
     assert got["groups"] > 400
 
 
+_BENCH_PROBE = r"""
+import json, os, runpy, sys
+repo, out_dir = sys.argv[1], sys.argv[2]
+os.environ.update(BENCH_ROWS="3000", BENCH_ISOLATED="0")
+sys.argv = ["bench_torch.py", "--device", "cpu", "--out-dir", out_dir]
+runpy.run_path(os.path.join(repo, "bench_torch.py"), run_name="__main__")
+print(json.dumps({"modules": sorted(
+    m for m in sys.modules if m in ("jax", "hdk_tpu")
+    or m.startswith(("jax.", "jaxlib", "hdk_tpu.")))}))
+"""
+
+
+def test_bench_loads_neither_jax_nor_hdk_tpu(tmp_path):
+    """``bench_torch.py --device cpu`` (its queries in this process) in a
+    fresh interpreter: it prints its record and loads no jax and no
+    hdk_tpu module."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _BENCH_PROBE, REPO, str(tmp_path)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    record, probe = proc.stdout.strip().splitlines()[-2:]
+    assert json.loads(record)["metric"] == "taxi_q1q4_geomean_rows_per_sec"
+    assert json.loads(probe)["modules"] == []
+
+
 def _run(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code, REPO],
@@ -300,7 +326,12 @@ def test_cuda_session_without_cuda_raises(probe, monkeypatch):
 _SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "hdk_tpu_torch", "**", "*.py"),
-                       recursive=True)) + ["chip_smoke.py", "k1_ab.py", "profile_smoke.py"]
+                       recursive=True)) + [
+    "chip_smoke.py", "k1_ab.py", "profile_smoke.py", "bench_common_torch.py",
+    "bench_torch.py", "bench_suite_torch.py", "bench_scaling_torch.py",
+    "tools/bench_ingest_torch.py", "tools/ndv_overhead_torch.py",
+    "tools/q3_analyze_torch.py", "tools/q3_stages_torch.py",
+    "examples/taxi_demo_torch.py", "examples/features_demo_torch.py"]
 
 _FORBIDDEN = [
     (re.compile(r"^\s*import\s+hdk_tpu\b", re.M), "import hdk_tpu"),
