@@ -113,17 +113,31 @@ Phases, each printed as it runs:
      (``bench_common_torch.py``) at the size they timed, and count the
      kernel launches of their timed runs.  ``--phase13`` runs it alone
      after the build (``--sizes '{"suite_scale": 0.1}'`` cuts a size),
-     without the contract lines.
+     without the contract lines;
+ 14. the streaming top-n: each query in a default session (the
+     streaming top-n up to ``exec.streaming_topn_max`` rows) and in one
+     with the knob at 0 (the full sort), on the expected route in each
+     and equal to a numpy stable lexsort row for row, both routes'
+     warm ms logged: T1 ``ORDER BY total_amount DESC LIMIT 10``, T2
+     ``ORDER BY passenger_count DESC, trip_distance LIMIT 1000`` and T3
+     ``WHERE cab_type = 1 ORDER BY pickup_datetime LIMIT 100`` over 100M
+     taxi rows, T4 ``ORDER BY y DESC, g`` over the nulls table at the
+     knob (LIMIT 100000) and one row past it (the full sort in both
+     sessions), HN2 and TPC-H Q3.  ``--phase14`` runs it alone after
+     the build (``--sizes '{"taxi_rows": ...}'`` cuts a size), without
+     the contract lines.
 Phases 5-6 are the sort route, phase 7 the join path, phase 8 the
 window path, phase 9 the controls, phase 10 the facade, phases 11
-and 12 the multi-device and multi-host paths and phase 13 the bench's:
+and 12 the multi-device and multi-host paths, phase 13 the bench's and
+phase 14 the top-n's:
 each phase's kernel launches count apart from the others' (phase 12's
 inside its ranks and phase 13's inside its timed query processes, each
 summed by the parent), every kernel must launch on phases 4, 5-6, 11
 and 12, the kernels
 of TPC-H Q3 on phase 7, W3's (K1 and K4) on phase 8, the streamed Q1's
 (K1, K3 and K4) on phase 9, S1's (K1, K3 and K4) and U1's (K1 and
-K4) on phase 10, and K1, K3 and K4 on phase 13.  Each phase ends with
+K4) on phase 10, K1, K3 and K4 on phase 13, and K1 (TPC-H Q3) and K4
+(HN2) on phase 14.  Each phase ends with
 the device cache's evictions and resident bytes.  The line
 before the last is a JSON object with the per-kernel results (every
 phase-3 case under ``cases``); the last line is
@@ -2916,6 +2930,187 @@ def bench_phase(card, hist, device="cuda", sizes=None, want=BENCH_KERNELS):
     return launches
 
 
+
+# -- phase 14: the streaming top-n ------------------------------------------
+
+# the kernels under phase 14's sorts: HN2's COUNT (K4), TPC-H Q3's SUM (K1)
+TOPN_KERNELS = ("groupby_sums", "count_hist")
+TOPN_SIZES = {"taxi_rows": TAXI_ROWS, "nulls_rows": NULLS_ROWS,
+              "hn_rows": HIGH_NDV_ROWS, "hn_keys": HIGH_NDV_KEYS,
+              "q3_scale": 1.0}
+TOPN_TAXI_COLS = ("cab_type", "passenger_count", "total_amount",
+                  "trip_distance", "pickup_datetime")
+# (label, WHERE, ORDER BY, LIMIT, the oracle's ascending keys and live
+# rows from the taxi columns) of T1-T3
+TOPN_TAXI = (
+    ("T1", "", "total_amount DESC", 10,
+     lambda d: ([-d["total_amount"]], None)),
+    ("T2", "", "passenger_count DESC, trip_distance", 1000,
+     lambda d: ([-d["passenger_count"], d["trip_distance"]], None)),
+    ("T3", "WHERE cab_type = 1 ", "pickup_datetime", 100,
+     lambda d: ([d["pickup_datetime"]], d["cab_type"] == 1)),
+)
+TOPN_NULLS_Q = "SELECT g, x, y FROM t ORDER BY y DESC, g LIMIT {}"
+# the crossover: T4's LIMIT as these shares of the nulls table's rows,
+# past the default knob, in a session whose knob covers every row
+TOPN_SWEEP = (0.03, 0.1, 0.3)
+
+
+def topn_oracle(keys, topn: int, live=None) -> np.ndarray:
+    """Row ids of the first ``topn`` live rows in ascending order of
+    ``keys`` (the first major), ties by row id: the live rows whose first
+    key is at most the ``topn``-th smallest (``np.partition``), then a
+    stable lexsort of those alone."""
+    k0 = keys[0] if live is None else keys[0][live]
+    kth = np.partition(k0, topn - 1)[topn - 1]
+    cand = keys[0] <= kth
+    if live is not None:
+        cand &= live
+    idx = np.flatnonzero(cand)
+    order = np.lexsort((idx, *[k[idx] for k in reversed(keys)]))
+    return idx[order[:topn]]
+
+
+def rows_check(out, data, ids, what: str) -> None:
+    """A result's columns equal ``data``'s rows ``ids`` in that order:
+    NULL flags and values exactly."""
+    for name, got in out.items():
+        want = data[name][ids]
+        equal(np.ma.getmaskarray(got), np.ma.getmaskarray(want),
+              f"{what} {name} NULLs")
+        equal(np.ma.filled(got, 0), np.ma.filled(want, 0), f"{what} {name}")
+
+
+def topn_phase(hdk_mod, card, hist, device="cuda", sizes=None,
+               want=TOPN_KERNELS):
+    """Phase 14: ORDER BY ... LIMIT through the public entry points in a
+    default session (the streaming top-n up to
+    ``exec.streaming_topn_max`` rows) and in one with the knob at 0 (the
+    full sort), each result held row for row against a numpy stable
+    lexsort: T1-T3 over the taxi table, T4 over the nulls table at the
+    knob and one row past it, HN2 and TPC-H Q3; then T4 at LIMITs of
+    ``TOPN_SWEEP`` x its rows in a third session, whose knob covers every
+    row, against the full sort (where the routes cross).  Each query must
+    take the expected route (``Executor._topn_route``) in each session;
+    logs both routes' warm ms.  Returns {query: {route: warm ms}}."""
+    t_phase = time.perf_counter()
+    sz = {**TOPN_SIZES, **(sizes or {})}
+    cuts = [f"{k} {sz[k]} of {v}" for k, v in TOPN_SIZES.items()
+            if sz[k] != v]
+    log(f"phase 14: the streaming top-n on {device} [{card}]; sizes {sz}; "
+        f"cut: {'; '.join(cuts) or 'nothing'}")
+    sessions = {"streaming": hdk_mod.HDK(device=device),
+                "full": hdk_mod.HDK(device=device,
+                                    **{"exec.streaming_topn_max": 0})}
+    knob = sessions["streaming"].config.exec.streaming_topn_max
+    times = {}
+
+    def both(label, rows, run, check_out, routes=("streaming", "full"),
+             want_kernels=(), join=False, pair=sessions):
+        times[label] = {}
+        for (name, s), route in zip(pair.items(), routes):
+            ex = s._executor
+            ex._topn_route = None
+            if join:
+                res, _, lat = join_query(
+                    lambda: run(s), card, f"{label}_{name}", rows, hist, ex,
+                    route="perfect(recycled)", want=want_kernels)
+            else:
+                rep = {}
+                res = timed_query(lambda: run(s), card, f"{label}_{name}",
+                                  rows, hist, want_kernels, report=rep)
+                lat = rep["warm_s"]
+            check(ex._topn_route == route,
+                  f"{label}: route {ex._topn_route} in the {name} session, "
+                  f"want {route}")
+            check_out(res.to_numpy(), f"{label} ({name} session)")
+            times[label][f"{name} session ({route})"] = lat * 1e3
+        log(f"topn {label}: warm_ms={times[label]!r} [{card}]")
+
+    t0 = time.perf_counter()
+    taxi = gen_taxi(sz["taxi_rows"])
+    log(f"taxi data: {sz['taxi_rows']} rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for s in sessions.values():
+        s.import_pydict(taxi, name="trips")
+    cols = ", ".join(TOPN_TAXI_COLS)
+    for label, where, order_by, limit, oracle in TOPN_TAXI:
+        sql = (f"SELECT {cols} FROM trips {where}ORDER BY {order_by} "
+               f"LIMIT {limit}")
+        keys, live = oracle(taxi)
+        ids = topn_oracle(keys, limit, live)
+        both(label, sz["taxi_rows"], lambda s, q=sql: s.sql(q),
+             lambda out, what, ids=ids: rows_check(out, taxi, ids, what))
+    for s in sessions.values():
+        s.drop_table("trips")
+    del taxi
+
+    nulls = gen_nulls(sz["nulls_rows"])
+    for s in sessions.values():
+        s.import_pydict(nulls, name="t")
+    ynull = np.ma.getmaskarray(nulls["y"])
+    # y DESC puts NULLs first: a null flag, then -y (0 under a NULL), g;
+    # one stable lexsort of every row serves each LIMIT
+    order = np.lexsort((nulls["g"],
+                        np.where(ynull, 0.0, -np.ma.getdata(nulls["y"])),
+                        (~ynull).astype(np.int8)))
+    wide = {"streaming": hdk_mod.HDK(device=device, **{
+        "exec.streaming_topn_max": sz["nulls_rows"]}),
+        "full": sessions["full"]}
+    wide["streaming"].import_pydict(nulls, name="t")
+    cases = [("T4", knob, ("streaming", "full"), sessions),
+             ("T4_past_knob", knob + 1, ("full", "full"), sessions)]
+    cases += [(f"T4_limit_{int(f * sz['nulls_rows'])}",
+               int(f * sz["nulls_rows"]), ("streaming", "full"), wide)
+              for f in TOPN_SWEEP]
+    for label, limit, routes, pair in cases:
+        both(label, sz["nulls_rows"],
+             lambda s, q=TOPN_NULLS_Q.format(limit): s.sql(q),
+             lambda out, what, ids=order[:limit]: rows_check(
+                 out, nulls, ids, what), routes=routes, pair=pair)
+    for s in (*sessions.values(), wide["streaming"]):
+        s.drop_table("t")
+    del nulls, order, wide
+
+    t0 = time.perf_counter()
+    data = gen_high_ndv(sz["hn_rows"], sz["hn_keys"])
+    oracle = hn_oracle(data, sz["hn_keys"])
+    log(f"high-NDV data and oracle: {time.perf_counter() - t0:.1f} s")
+    for s in sessions.values():
+        s.import_pydict(data, name="ndv_t")
+    both("HN2", sz["hn_rows"],
+         lambda s: s.scan("ndv_t").agg("k", "count").sort(
+             ("count", "desc"), limit=100).run(),
+         lambda out, what: hn_check("HN2", out, oracle),
+         want_kernels=[k for k in want if k == "count_hist"])
+    for s in sessions.values():
+        s.drop_table("ndv_t")
+    del data, oracle
+
+    t0 = time.perf_counter()
+    tables = dict(zip(("customer3", "orders3", "lineitem3"),
+                      gen_tpch_q3(sz["q3_scale"])))
+    log(f"TPC-H Q3 data: {time.perf_counter() - t0:.1f} s")
+    for s in sessions.values():
+        for name, table in tables.items():
+            s.import_pydict(table, name=name,
+                            schema=q3_schema(hdk_mod.types, name))
+    both("Q3", tables["lineitem3"]["l_orderkey"].size,
+         lambda s: s.sql(TPCH_Q3),
+         lambda out, what: q3_check(what, out, tables),
+         want_kernels=[k for k in want if k == "groupby_sums"], join=True)
+    for s in sessions.values():
+        drop_tables(s, *tables)
+    del tables, sessions
+
+    launches = hist.launches()
+    for name in want:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the top-n path")
+    log(f"top-n path: kernel launches {launches}; phase 14 in "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return times
+
 # slots of each kernel's headline case in the kernels line
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
@@ -2968,6 +3163,13 @@ def main() -> None:
         # phase 13 alone, at the sizes given (no contract line)
         del hdk
         bench_phase(card, hist, sizes=json.loads(_arg("--sizes", "{}")))
+        return
+    if "--phase14" in sys.argv:
+        # phase 14 alone, at the sizes given (no contract line)
+        del hdk
+        hist.reset_launches()
+        topn_phase(hdk_tpu_torch, card, hist,
+                   sizes=json.loads(_arg("--sizes", "{}")))
         return
 
     t0 = time.perf_counter()
@@ -3086,6 +3288,15 @@ def main() -> None:
     check("jax" not in sys.modules, "jax was imported")
     log_device_cache("phase 13")
 
+    # phase 14: the streaming top-n beside the full sort, its launches
+    # counted apart (HN2 must launch K4, TPC-H Q3 K1)
+    torch.cuda.empty_cache()
+    hist.reset_launches()
+    topn_phase(hdk_tpu_torch, card, hist)
+    topn_launches = hist.launches()
+    check("jax" not in sys.modules, "jax was imported")
+    log_device_cache("phase 14")
+
     kernels = []
     for name, rec in report.items():
         # the headline case: taxi Q4's segment count, the kernel's widest
@@ -3110,6 +3321,7 @@ def main() -> None:
             "dist_path_launches": dist_launches[name],
             "multihost_path_launches": mh_launches[name],
             "bench_path_launches": bench_launches[name],
+            "topn_path_launches": topn_launches[name],
             "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it

@@ -236,17 +236,23 @@ class AggExecMixin:
     def _sort_group_buffer(self, sort_node: nd.Sort, node: nd.Aggregate,
                            cols, exists, nbuf: int) -> ExecTable:
         """The Sort's rows of a group buffer of ``nbuf`` entries: live
-        groups first in sort order (a stable lexicographic top-n), under a
-        LIMIT/OFFSET validity window."""
+        groups first in sort order (ties by group index), under a
+        LIMIT/OFFSET validity window; a small LIMIT takes the streaming
+        top-n (``sort.streaming_topn``), dead groups in its liveness
+        pass."""
         out_types = list(node.output_types)
         sf = sort_node.sort_fields
         limit, offset = sort_node.limit, sort_node.offset
         topn = (offset + limit
                 if limit is not None and 0 < offset + limit < nbuf else nbuf)
+        streaming = srt.streaming_topn(topn, nbuf,
+                                       self.config.exec.streaming_topn_max)
+        self._topn_route = "streaming" if streaming else "full"
         scols = [self._sortable(cols[f.field_index], out_types[f.field_index])
                  for f in sf]
-        perm = srt.lex_topn(srt.sort_keys_int64(
-            scols, [f.desc for f in sf], [f.nulls_first for f in sf]),
+        perm = (srt.lex_topn if streaming else srt.full_topn)(
+            srt.sort_keys_int64(scols, [f.desc for f in sf],
+                                [f.nulls_first for f in sf]),
             topn, exists)
         out = [MaskedCol(c.data[perm],
                          c.mask[perm] if c.mask is not None else None)

@@ -125,6 +125,8 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
         self._dist_window_route: Optional[str] = None
         self._dist_join_route: Optional[str] = None
         self._dist_sort_route: Optional[str] = None
+        # the last ORDER BY's route: "streaming" (sort.lex_topn) or "full"
+        self._topn_route: Optional[str] = None
         self._dist_retries = 0
         self._mesh = None
         if config.dist.enable:
@@ -595,14 +597,16 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
         topn = (offset + limit
                 if limit is not None and 0 < offset + limit < nrows0
                 else nrows0)
-        if (self._mesh is not None
-                and (topn == nrows0
-                     or topn > self.config.exec.streaming_topn_max)):
+        streaming = srt.streaming_topn(topn, nrows0,
+                                       self.config.exec.streaming_topn_max)
+        self._topn_route = "streaming" if streaming else "full"
+        if self._mesh is not None and not streaming:
             # no small LIMIT: the range-partitioned sort over the shards
             out = self._exec_sort_dist(node, results,
                                        (source, chain, src_node))
             if out is not None:
                 return out
+        key += f"/{self._topn_route}"
 
         def build():
             def fn(sub_cols, row_mask):
@@ -616,7 +620,8 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
                 skeys = srt.sort_keys_int64(
                     scols, [f.desc for f in node.sort_fields],
                     [f.nulls_first for f in node.sort_fields])
-                perm = srt.lex_topn(skeys, topn, rm)
+                perm = (srt.lex_topn if streaming
+                        else srt.full_topn)(skeys, topn, rm)
                 out = [MaskedCol(c.data[perm],
                                  c.mask[perm] if c.mask is not None else None)
                        for c in cols]

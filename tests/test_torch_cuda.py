@@ -2,8 +2,9 @@
 the shared-memory and the global-atomic mode and over the sorted group
 ids of the sort-based group-by, K1 at the shapes its design treats
 apart, and the main path, the sort route, scalar subqueries, joins,
-window functions, array columns, the executor's controls (fragment
-streaming and skipping, the watchdog, route feedback, EXPLAIN ANALYZE)
+window functions, array columns, the streaming top-n (against the full
+sort), the executor's controls (fragment streaming and skipping, the
+watchdog, route feedback, EXPLAIN ANALYZE)
 and the facade (a stream, a UDF, a spilled result) on a CUDA session
 against the same session on the CPU, and the device memory that an
 offload and ``clear_device_mem`` free.  Skips where there is no card.  On the card, without jax:
@@ -272,6 +273,59 @@ def test_sort_route_on_the_card(cuda, monkeypatch):
             else:
                 assert np.array_equal(gpu[name], cpu[name]), name
 
+
+
+def test_streaming_topn_on_the_card(cuda):
+    """``torch.topk`` promises no order among ties on the card: the
+    streaming top-n must still equal the full lexsort, on heavy ties,
+    NULL flags, dead rows and fewer live rows than the LIMIT, and its
+    queries must equal the CPU session's on both routes."""
+    from hdk_tpu_torch.exec import sort as srt
+    from hdk_tpu_torch.exec.masked import MaskedCol
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n = 1_000_000
+    for trial in range(6):
+        cols = [MaskedCol(torch.randint(0, 3 + 40 * (j == 2), (n,),
+                                        device=cuda, generator=gen),
+                          (torch.rand(n, device=cuda, generator=gen) > 0.1)
+                          if trial % 2 else None)
+                for j in range(3)]
+        rm = (torch.rand(n, device=cuda, generator=gen)
+              > (0.9999 if trial == 4 else 0.3)) if trial >= 3 else None
+        keys = srt.sort_keys_int64(cols, [True, False, trial % 2 == 0],
+                                   [False, True, False])
+        live = n if rm is None else int(rm.sum())
+        for topn in (10, 1000, 100_000):
+            got = srt.lex_topn(keys, topn, rm)
+            want = srt.full_topn(keys, topn, rm)
+            m = min(topn, live)
+            assert torch.equal(got[:m], want[:m]), (trial, topn)
+    rng = np.random.default_rng(6)
+    rows = 200_000
+    data = {"a": rng.integers(0, 5, rows), "b": rng.integers(0, 7, rows),
+            "y": np.ma.MaskedArray(np.round(rng.normal(0, 9, rows)),
+                                   rng.random(rows) < 0.1)}
+    sqls = ["SELECT a, b, y FROM t ORDER BY a DESC, b LIMIT 1000",
+            "SELECT a, b, y FROM t WHERE b > 2 ORDER BY y DESC, a "
+            "LIMIT 5000 OFFSET 7",
+            "SELECT a, b, COUNT(*) AS c FROM t GROUP BY a, b "
+            "ORDER BY c DESC, a LIMIT 5"]
+    out = []
+    for device, knob in (("cpu", 0), ("cuda", 0), ("cuda", 100000)):
+        hdk = hdk_tpu_torch.HDK(device=device,
+                                **{"exec.streaming_topn_max": knob})
+        hdk.import_pydict(data, name="t")
+        out.append([hdk.sql(q).to_numpy() for q in sqls])
+        assert hdk._executor._topn_route == ("streaming" if knob
+                                             else "full")
+    for res in out[1:]:
+        for cpu, gpu in zip(out[0], res):
+            for name in cpu:
+                assert np.array_equal(np.ma.getmaskarray(gpu[name]),
+                                      np.ma.getmaskarray(cpu[name])), name
+                assert np.array_equal(np.ma.filled(gpu[name], 0),
+                                      np.ma.filled(cpu[name], 0)), name
 
 # K2, K3 and K4 (csrc/int_hist.cu) in every mode the wrapper may pick: a copy
 # per lane (2), per block (1, E split into ranges past shared memory) and
