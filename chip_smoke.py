@@ -100,10 +100,11 @@ Phases, each printed as it runs:
      the build (``--sizes '{"hn1_rows": ...}'`` cuts a size), without
      the contract lines;
  13. the port's bench: ``bench_torch.py`` (taxi Q1-Q4, 10M rows, a
-     process per query), ``bench_suite_torch.py --scale 1.0`` (the
-     north-star configs: the 100M x 10M join, the zipf join, the
-     100M-row group-by over 50M keys with and without a top-100, TPC-H
-     Q1/Q6 and Q3 over 60M lineitem rows), ``bench_scaling_torch.py``
+     process per query), ``bench_suite_torch.py --scale 0.5`` (the
+     north-star configs at half their rows, which phases 4, 5 and 7 run
+     whole: the 50M x 5M join, the zipf join, the 50M-row group-by over
+     25M keys with and without a top-100, TPC-H Q1/Q6 and Q3 over 30M
+     lineitem rows), ``bench_scaling_torch.py``
      (2M rows over 1, 2 and 4 shards) and the ingest, NDV and TPC-H Q3
      tools at sizes cut to fit (the cuts are logged), each a process of
      its own that must exit 0 with its record's every key (all but the
@@ -125,11 +126,19 @@ Phases, each printed as it runs:
      knob (LIMIT 100000) and one row past it (the full sort in both
      sessions), HN2 and TPC-H Q3.  ``--phase14`` runs it alone after
      the build (``--sizes '{"taxi_rows": ...}'`` cuts a size), without
+     the contract lines;
+ 15. the reference's surface: taxi Q1 over 10M rows with the debug timer
+     on, in a session on the card and one on the CPU, each step span's
+     name and ms printed, the step kinds required equal; then the 45
+     query shapes of tests/test_ref_shapes.py (read from its text) over
+     ``gen_ref_shapes``' 1M-row table in both sessions, the card's
+     results equal to the CPU's (integers and NULLs exactly, floats to
+     rtol 1e-9).  ``--phase15`` runs it alone after the build, without
      the contract lines.
 Phases 5-6 are the sort route, phase 7 the join path, phase 8 the
 window path, phase 9 the controls, phase 10 the facade, phases 11
-and 12 the multi-device and multi-host paths, phase 13 the bench's and
-phase 14 the top-n's:
+and 12 the multi-device and multi-host paths, phase 13 the bench's,
+phase 14 the top-n's and phase 15 the reference's surface:
 each phase's kernel launches count apart from the others' (phase 12's
 inside its ranks and phase 13's inside its timed query processes, each
 summed by the parent), every kernel must launch on phases 4, 5-6, 11
@@ -137,7 +146,7 @@ and 12, the kernels
 of TPC-H Q3 on phase 7, W3's (K1 and K4) on phase 8, the streamed Q1's
 (K1, K3 and K4) on phase 9, S1's (K1, K3 and K4) and U1's (K1 and
 K4) on phase 10, K1, K3 and K4 on phase 13, and K1 (TPC-H Q3) and K4
-(HN2) on phase 14.  Each phase ends with
+(HN2) on phase 14, and K1, K3 and K4 on phase 15.  Each phase ends with
 the device cache's evictions and resident bytes.  The line
 before the last is a JSON object with the per-kernel results (every
 phase-3 case under ``cases``); the last line is
@@ -2740,12 +2749,14 @@ def multihost_phase(card, dist_stats, device="cuda", sizes=None,
 
 BENCH_KERNELS = ("groupby_sums", "seg_sums_exact", "count_hist")
 # each script's sizes: the bench's defaults, where they fit; the cuts
-# (ingest, NDV, the two Q3 tools) are logged
-BENCH_SIZES = {"bench_rows": 10_000_000, "suite_scale": 1.0,
+# (the suite, ingest, NDV, the two Q3 tools) are logged.  The suite runs
+# at half scale to keep the script inside its time limit on a slow host
+BENCH_SIZES = {"bench_rows": 10_000_000, "suite_scale": 0.5,
                "scaling_rows": 2_000_000, "ingest_rows": 1_000_000,
                "ingest_reps": 1, "dict_rows": 1_000_000,
                "ndv_rows": 10_000_000, "q3_scale": 0.1, "q3_runs": 4}
-BENCH_DEFAULTS = {"ingest_rows": 10_000_000, "ingest_reps": 3,
+BENCH_DEFAULTS = {"suite_scale": 1.0, "ingest_rows": 10_000_000,
+                  "ingest_reps": 3,
                   "dict_rows": 4_000_000, "ndv_rows": 100_000_000,
                   "q3_scale": 1.0, "q3_runs": 8}
 BENCH_TIMEOUT_S = 600
@@ -3111,6 +3122,138 @@ def topn_phase(hdk_mod, card, hist, device="cuda", sizes=None,
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     return times
 
+# -- phase 15 -----------------------------------------------------------
+
+# the kernels phase 15 must launch on the card: the 45 shapes' COUNTs
+# (K4), integer SUMs (K3) and float SUMs and AVGs (K1)
+SURFACE_KERNELS = ("count_hist", "seg_sums_exact", "groupby_sums")
+SURFACE_SIZES = {"taxi_rows": 10_000_000, "shape_rows": 1_000_000}
+
+
+def ref_shape_queries() -> list:
+    """``QUERIES`` of tests/test_ref_shapes.py (the 45 query shapes drawn
+    from the HDK reference's ArrowBasedExecuteTest), read from the file's
+    text."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "test_ref_shapes.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and [getattr(t, "id", None) for t in node.targets]
+                == ["QUERIES"]):
+            return ast.literal_eval(node.value)
+    raise LookupError(f"no QUERIES in {path}")
+
+
+def gen_ref_shapes(rows: int, seed: int = 31):
+    """The shapes' tables: ``rt`` with tests/test_ref_shapes.py's columns
+    and value ranges at ``rows`` rows (``fn`` NULL in a fifth of them),
+    and its 40-row ``rt_inner``."""
+    rng = np.random.default_rng(seed)
+    rt = {
+        "x": rng.integers(5, 10, rows),
+        "y": rng.integers(40, 45, rows),
+        "z": rng.integers(100, 105, rows),
+        "t": rng.integers(1000, 1010, rows),
+        "f": np.round(rng.normal(1.2, 0.4, rows), 6),
+        "d": np.round(rng.normal(2.5, 1.0, rows), 6),
+        "fn": np.ma.MaskedArray(np.round(rng.normal(-0.5, 1.0, rows), 6),
+                                rng.random(rows) < 0.2),
+        "w": rng.integers(-50, 50, rows),
+        "s": rng.choice(np.array(["foo", "bar", "baz", "quux"],
+                                 dtype=object), rows),
+        "b": rng.integers(0, 2, rows),
+    }
+    inner = {
+        "x": rng.integers(5, 10, 40),
+        "s": rng.choice(np.array(["foo", "bar", "hidden"], dtype=object), 40),
+        "v": rng.integers(0, 100, 40),
+    }
+    return {"rt": rt, "rt_inner": inner}
+
+
+def timer_steps(hdk_mod, run) -> list:
+    """``run()`` with the debug timer on, inside a ``query`` span: its
+    step spans as ``{"name", "ms"}``, in order (the span's children)."""
+    hdk_mod.enable_debug_timer(True)
+    try:
+        with hdk_mod.utils.timer.DebugTimer("query"):
+            run()
+        report = hdk_mod.timer_report()
+    finally:
+        hdk_mod.enable_debug_timer(False)
+    check(report is not None and report["name"] == "query"
+          and report.get("children"),
+          f"timer_report() {report} holds no step span")
+    return report["children"]
+
+
+def surface_phase(hdk_mod, card, hist, device="cuda", sizes=None,
+                  want=SURFACE_KERNELS):
+    """Phase 15: the debug timer's step spans of taxi Q1 on the card,
+    whose step kinds must equal a CPU session's, and the 45 query shapes
+    of tests/test_ref_shapes.py in a session on the card against the same
+    queries in a CPU session of the port, over tables from
+    ``gen_ref_shapes``: integers and NULLs equal, floats to rtol 1e-9.
+    Returns the card session's kernel launches (counted from 0 here)."""
+    t_phase = time.perf_counter()
+    sz = {**SURFACE_SIZES, **(sizes or {})}
+    log(f"phase 15: the debug timer and the reference's query shapes on "
+        f"{device} against the CPU [{card}]; sizes {sz}")
+    gpu = hdk_mod.HDK(device=device)
+    cpu = hdk_mod.HDK(device="cpu")
+    t = hdk_mod.types
+    taxi = gen_taxi(sz["taxi_rows"])
+    for s in (gpu, cpu):
+        s.import_pydict(dict(taxi), name="trips", schema={
+            "pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)})
+    hist.reset_launches()
+    steps = {}
+    for name, s in (("card", gpu), ("cpu", cpu)):
+        q1 = lambda s=s: s.scan("trips").agg("cab_type", "count").run()
+        q1()  # warm: the spans below time no first call
+        spans = timer_steps(hdk_mod, lambda: q1().block())
+        steps[name] = spans
+        log(f"timer taxi_q1 ({name} session): {json.dumps(spans)}")
+        taxi_check("q1", q1().to_numpy(), taxi)
+    kinds = {k: [sp["name"].split("#")[0] for sp in v]
+             for k, v in steps.items()}
+    check(kinds["card"] == kinds["cpu"],
+          f"taxi Q1's step kinds on the card {kinds['card']} differ from "
+          f"the CPU session's {kinds['cpu']}")
+    for s in (gpu, cpu):
+        s.drop_table("trips")
+    del taxi
+
+    tables = gen_ref_shapes(sz["shape_rows"])
+    for s in (gpu, cpu):
+        for name, data in tables.items():
+            s.import_pydict(dict(data), name=name)
+    queries = ref_shape_queries()
+    check(len(queries) == 45, f"{len(queries)} reference shapes, want 45")
+    card_s = 0.0
+    for i, sql in enumerate(queries):
+        t0 = time.perf_counter()
+        got = gpu.sql(sql)
+        got.block()
+        card_s += time.perf_counter() - t0
+        same_result(got.to_numpy(), cpu.sql(sql).to_numpy(),
+                    f"shape {i} ({sql})", ordered="ORDER BY" in sql)
+    launches = hist.launches()
+    for name in want:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the reference's shapes")
+    for s in (gpu, cpu):
+        drop_tables(s, *tables)
+    log(f"reference shapes: {len(queries)} equal to the CPU session over "
+        f"{sz['shape_rows']} rows; card time {card_s!r} s (first runs); "
+        f"kernel launches {launches}; phase 15 in "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
 # slots of each kernel's headline case in the kernels line
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
@@ -3170,6 +3313,12 @@ def main() -> None:
         hist.reset_launches()
         topn_phase(hdk_tpu_torch, card, hist,
                    sizes=json.loads(_arg("--sizes", "{}")))
+        return
+    if "--phase15" in sys.argv:
+        # phase 15 alone, at the sizes given (no contract line)
+        del hdk
+        surface_phase(hdk_tpu_torch, card, hist,
+                      sizes=json.loads(_arg("--sizes", "{}")))
         return
 
     t0 = time.perf_counter()
@@ -3297,6 +3446,13 @@ def main() -> None:
     check("jax" not in sys.modules, "jax was imported")
     log_device_cache("phase 14")
 
+    # phase 15: the debug timer's steps and the reference's 45 query
+    # shapes on the card against a CPU session, launches counted apart
+    torch.cuda.empty_cache()
+    surface_launches = surface_phase(hdk_tpu_torch, card, hist)
+    check("jax" not in sys.modules, "jax was imported")
+    log_device_cache("phase 15")
+
     kernels = []
     for name, rec in report.items():
         # the headline case: taxi Q4's segment count, the kernel's widest
@@ -3322,6 +3478,7 @@ def main() -> None:
             "multihost_path_launches": mh_launches[name],
             "bench_path_launches": bench_launches[name],
             "topn_path_launches": topn_launches[name],
+            "surface_path_launches": surface_launches[name],
             "cases": rec["cases"],
         })
     print(card)  # as nvidia-smi gives it

@@ -35,8 +35,11 @@ fallback of SQL the engine refuses (``exec.enable_interop``), CSV and
 JSON ingest, and ``import_arrow``'s device prefetch, which copies each
 column while the next one decodes.
 
-Multi-device sessions are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+``HDK(device=..., **{"dist.enable": True, "dist.num_devices": n})``
+is a session over a mesh of n shards, and ``dist.multi_host`` joins a
+job of processes through ``torch.distributed``.
+``enable_debug_timer(True)`` times each step of a query on the host
+clock; ``timer_report()`` returns the last step's tree.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from .storage.schema import (
     RESULT_SCHEMA_ID,
     SchemaRegistry,
 )
+from .utils.timer import enable_debug_timer, timer_report
 
 __version__ = "0.1.0"
 

@@ -42,6 +42,7 @@ from ..config import Config
 from ..ir import expr as ir
 from ..ir import node as nd
 from ..utils.logger import get_channel
+from ..utils.timer import DebugTimer
 from . import sort as srt
 from .agg_exec import AggExecMixin, _window
 from .codecache import CodeCache, chain_key
@@ -199,24 +200,26 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
                             f"exceeds budget {wd.max_rows_per_step}")
                 if deadline is not None and _time.monotonic() > deadline:
                     raise ExecError("watchdog: query time budget exceeded")
-            t0 = _time.monotonic()
-            self._fused_rows = {}
-            if (isinstance(node, nd.Sort)
-                    and node.inputs[0].id in fused_aggs
-                    and node.inputs[0].id not in results):
-                out = self._exec_fused_agg_sort(node, node.inputs[0], results)
-                if out is None:  # empty or streamed input: run the parts
-                    agg = node.inputs[0]
-                    results[agg.id] = self._exec_aggregate(agg, results)
-                    if self._analyze:
-                        self._record_step(agg, results[agg.id], t0)
-                        t0 = _time.monotonic()
+            with DebugTimer(f"step:{type(node).__name__}#{node.id}"):
+                t0 = _time.monotonic()
+                self._fused_rows = {}
+                if (isinstance(node, nd.Sort)
+                        and node.inputs[0].id in fused_aggs
+                        and node.inputs[0].id not in results):
+                    out = self._exec_fused_agg_sort(node, node.inputs[0],
+                                                    results)
+                    if out is None:  # empty or streamed input: the parts
+                        agg = node.inputs[0]
+                        results[agg.id] = self._exec_aggregate(agg, results)
+                        if self._analyze:
+                            self._record_step(agg, results[agg.id], t0)
+                            t0 = _time.monotonic()
+                        out = self._exec_step(node, results)
+                else:
                     out = self._exec_step(node, results)
-            else:
-                out = self._exec_step(node, results)
-            results[node.id] = out
-            if self._analyze:
-                self._record_step(node, out, t0)
+                results[node.id] = out
+                if self._analyze:
+                    self._record_step(node, out, t0)
             _LOG.debug1("step %s#%d: %d rows, %.1f ms%s%s",
                         type(node).__name__, node.id, out.nrows,
                         (_time.monotonic() - t0) * 1e3,

@@ -4,6 +4,12 @@ Reference: omniscidb/Logger/Logger.h:318-374 — RAII DebugTimer /
 DurationTree: per-thread nested timer trees with JSON export, enabled by
 ``enable_debug_timer``.  Same shape here: a context manager building a
 per-thread tree; ``timer_report()`` returns the last root as a dict.
+
+A span reads the host clock and forces nothing.  On a CUDA device the
+executor's step spans (``step:<Node>#<id>``) therefore measure the
+step's launches and the host syncs inside it, not its device time;
+EXPLAIN ANALYZE (``HDK.explain(q, analyze=True)``) forces each step and
+gives that.
 """
 
 from __future__ import annotations

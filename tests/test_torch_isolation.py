@@ -153,6 +153,51 @@ def test_facade_parity():
         hdk_tpu_torch.HDK.import_pydict).parameters
 
 
+
+# what hdk_tpu/__init__.py holds that is not the package's own surface:
+# imported third-party modules and typing names, and the TPU
+# compile-cache helpers (ROADMAP, "Not ported")
+_NOT_SURFACE = {"jax", "np", "threading", "_os", "annotations", "Dict",
+                "Optional", "Sequence", "_cache_dir", "_platform_tag"}
+
+
+def test_package_parity():
+    """Every function, class and submodule that hdk_tpu/__init__.py
+    defines or re-exports exists in hdk_tpu_torch under the same name: a
+    function or class as the port's own, a submodule as the port's
+    module of the same path."""
+    import inspect
+    import types
+
+    import hdk_tpu
+    import hdk_tpu_torch
+
+    missing, wrong = [], []
+    for name, value in vars(hdk_tpu).items():
+        if name.startswith("__") or name in _NOT_SURFACE:
+            continue
+        if isinstance(value, types.ModuleType):
+            assert value.__name__.startswith("hdk_tpu."), name
+            want = "hdk_tpu_torch" + value.__name__[len("hdk_tpu"):]
+        elif inspect.isclass(value) or inspect.isfunction(value):
+            want = None
+        else:
+            continue
+        if not hasattr(hdk_tpu_torch, name):
+            missing.append(name)
+            continue
+        port = getattr(hdk_tpu_torch, name)
+        if want is not None:
+            ok = isinstance(port, types.ModuleType) and port.__name__ == want
+        else:
+            ok = (inspect.isclass(port) == inspect.isclass(value)
+                  and port.__module__.startswith("hdk_tpu_torch"))
+        if not ok:
+            wrong.append(name)
+    assert not missing, f"hdk_tpu_torch lacks {sorted(missing)}"
+    assert not wrong, f"not the port's own: {sorted(wrong)}"
+
+
 _ONE_RANK_PROBE = r"""
 import json, socket, sys
 sys.path.insert(0, sys.argv[1])
