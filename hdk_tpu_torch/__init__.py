@@ -39,7 +39,10 @@ column while the next one decodes.
 is a session over a mesh of n shards, and ``dist.multi_host`` joins a
 job of processes through ``torch.distributed``.
 ``enable_debug_timer(True)`` times each step of a query on the host
-clock; ``timer_report()`` returns the last step's tree.
+clock, and the front end's stages (``sql:bind``, ``sql:parse``,
+``plan:optimize``, ``exec:prepare``) under the open span's ``stages``,
+and counts the host syncs in each span; ``timer_report()`` returns the
+last step's tree.
 """
 
 from __future__ import annotations
@@ -614,13 +617,16 @@ class HDK:
         from .exec.scalar import ExecError
         from .sql.binder import Binder
         from .sql.lexer import SqlError
+        from .utils.timer import DebugTimer
 
         stripped = query.lstrip()
         if stripped[:8].lower() == "explain ":
             options = dict(options, just_explain=True)
             query = stripped[8:]
         try:
-            return self._run(Binder(self).bind(query), **options)
+            with DebugTimer("sql:bind", stage=True):
+                node = Binder(self).bind(query)
+            return self._run(node, **options)
         except (SqlError, ExecError) as err:
             if not self._config.exec.enable_interop:
                 raise
@@ -727,6 +733,7 @@ class HDK:
         """Execute with per-query options (the JAX package's option set;
         device_type and the like are accepted and ignored)."""
         from .exec.optimizer import optimize_dag
+        from .utils.timer import DebugTimer
 
         known = {"just_explain", "device_type", "enable_watchdog",
                  "watchdog_time_limit_ms", "enable_lazy_fetch",
@@ -735,12 +742,14 @@ class HDK:
         unknown = set(options) - known
         if unknown:
             raise TypeError(f"unknown query options: {sorted(unknown)}")
-        dag = optimize_dag(_ir_node.QueryDag(node), self._config)
+        with DebugTimer("plan:optimize", stage=True):
+            dag = optimize_dag(_ir_node.QueryDag(node), self._config)
+            if not options.get("just_explain"):
+                dag, plan_fb = self._choose_plan_variant(node, dag)
         if options.get("just_explain"):
             from .exec.explain import explain_dag
 
             return explain_dag(dag.root)  # type: ignore[return-value]
-        dag, plan_fb = self._choose_plan_variant(node, dag)
         wd = self._config.exec.watchdog
         saved = (wd.enable, wd.time_limit_ms)
         if "enable_watchdog" in options:

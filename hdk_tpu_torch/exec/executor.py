@@ -156,34 +156,35 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
 
     def _execute_logged(self, dag: nd.QueryDag) -> ExecTable:
         results: Dict[int, ExecTable] = {}
-        order = dag.topo_order()
-        self._demand = _column_demand(order, dag.root)
-        self._consumers = _consumer_kinds(order, dag.root)
-        self._frag_prune_stats = None
-        self._frag_stream_chunks = None
-        self._direct_consumers = {}
-        for n_ in order:
-            for pos_, i_ in enumerate(n_.inputs):
-                self._direct_consumers.setdefault(i_.id, []).append(
-                    (n_, pos_))
-        t_query = _time.monotonic()
-        # agg->sort fusion: a Sort that alone consumes a keyed Aggregate
-        # runs with it as one step (no compaction, no group-count sync)
-        uses: Dict[int, int] = {}
-        for n in order:
-            for i in n.inputs:
-                uses[i.id] = uses.get(i.id, 0) + 1
-        fused_aggs = {
-            n.inputs[0].id for n in order
-            if (isinstance(n, nd.Sort) and n.sort_fields
-                and isinstance(n.inputs[0], nd.Aggregate)
-                and uses.get(n.inputs[0].id, 0) == 1
-                and n.inputs[0] is not dag.root and n.inputs[0].keys)}
-        wd = self.config.exec.watchdog
-        deadline = (_time.monotonic() + wd.time_limit_ms / 1e3
-                    if wd.enable and wd.time_limit_ms else None)
-        self._deadline = deadline
-        skip_nodes = self._plan_recycle_skips(order)
+        with DebugTimer("exec:prepare", stage=True):
+            order = dag.topo_order()
+            self._demand = _column_demand(order, dag.root)
+            self._consumers = _consumer_kinds(order, dag.root)
+            self._frag_prune_stats = None
+            self._frag_stream_chunks = None
+            self._direct_consumers = {}
+            for n_ in order:
+                for pos_, i_ in enumerate(n_.inputs):
+                    self._direct_consumers.setdefault(i_.id, []).append(
+                        (n_, pos_))
+            t_query = _time.monotonic()
+            # agg->sort fusion: a Sort that alone consumes a keyed Aggregate
+            # runs with it as one step (no compaction, no group-count sync)
+            uses: Dict[int, int] = {}
+            for n in order:
+                for i in n.inputs:
+                    uses[i.id] = uses.get(i.id, 0) + 1
+            fused_aggs = {
+                n.inputs[0].id for n in order
+                if (isinstance(n, nd.Sort) and n.sort_fields
+                    and isinstance(n.inputs[0], nd.Aggregate)
+                    and uses.get(n.inputs[0].id, 0) == 1
+                    and n.inputs[0] is not dag.root and n.inputs[0].keys)}
+            wd = self.config.exec.watchdog
+            deadline = (_time.monotonic() + wd.time_limit_ms / 1e3
+                        if wd.enable and wd.time_limit_ms else None)
+            self._deadline = deadline
+            skip_nodes = self._plan_recycle_skips(order)
         for node in order:
             if node.id in skip_nodes:
                 continue  # a build subtree the recycled artifacts cover
@@ -220,15 +221,16 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
                 results[node.id] = out
                 if self._analyze:
                     self._record_step(node, out, t0)
-            _LOG.debug1("step %s#%d: %d rows, %.1f ms%s%s",
-                        type(node).__name__, node.id, out.nrows,
-                        (_time.monotonic() - t0) * 1e3,
-                        f" route={self._dist_agg_route}"
-                        if self._dist_agg_route
-                        and isinstance(node, nd.Aggregate) else "",
-                        " frags={selected}/{total}".format(
-                            **self._frag_prune_stats)
-                        if self._frag_prune_stats else "")
+            if _LOG.enabled_for("DEBUG1"):
+                _LOG.debug1("step %s#%d: %d rows, %.1f ms%s%s",
+                            type(node).__name__, node.id, out.nrows,
+                            (_time.monotonic() - t0) * 1e3,
+                            f" route={self._dist_agg_route}"
+                            if self._dist_agg_route
+                            and isinstance(node, nd.Aggregate) else "",
+                            " frags={selected}/{total}".format(
+                                **self._frag_prune_stats)
+                            if self._frag_prune_stats else "")
         _LOG.info("query done: %.1f ms, %d rows",
                   (_time.monotonic() - t_query) * 1e3,
                   results[dag.root.id].nrows)

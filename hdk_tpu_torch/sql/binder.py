@@ -23,6 +23,7 @@ from . import ast as A
 from .lexer import SqlError
 from .parser import parse
 from ..exec.codecache import expr_sig
+from ..utils.timer import DebugTimer
 
 _AGG_FNS = {
     "count", "sum", "avg", "mean", "min", "max", "stddev", "stddev_samp",
@@ -99,7 +100,8 @@ class Binder:
 
     # ------------------------------------------------------------------
     def bind(self, sql: str) -> nd.Node:
-        q = parse(sql)
+        with DebugTimer("sql:parse", stage=True):
+            q = parse(sql)
         self.ctes: Dict[str, nd.Node] = {}
         for name, sub in getattr(q, "ctes", {}).items():
             self.ctes[name] = self.bind_query(sub)

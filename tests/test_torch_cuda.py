@@ -866,3 +866,55 @@ def test_multi_host_session_on_one_card(cuda):
         want = mh.payload(single.sql(q))
         for got in ranks:
             mh.same(got["shapes"][i], want, q)
+
+
+def test_debug_timer_counts_host_syncs(cuda):
+    """While the debug timer is on, PyTorch's implicit syncs count into
+    the innermost open span: ``.item()``, ``nonzero``, a boolean-mask
+    index and a copy to the host each at least once, and a join off the
+    dense routes (build keys over [0, 2^40): the sorted-hash route reads
+    its candidate count with ``int()``) inside its steps.  The mode is
+    "warn" only while a span is open; closing the root puts it back."""
+    from hdk_tpu_torch.utils import timer
+
+    mode = torch.cuda.get_sync_debug_mode()
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 1 << 40, 5000)
+    s = hdk_tpu_torch.HDK(device="cuda")
+    s.import_pydict({"k": keys[rng.integers(0, 5000, 20000)],
+                     "v": rng.random(20000)}, name="probe")
+    s.import_pydict({"k": keys, "w": rng.integers(0, 9, 5000)},
+                    name="build")
+    sql = ("SELECT COUNT(*) AS c, SUM(v) AS s FROM probe "
+           "JOIN build ON probe.k = build.k")
+    warm = s.sql(sql).to_numpy()
+    x = torch.arange(-5, 5, device=cuda)
+    cases = {"item": lambda: x.sum().item(),
+             "nonzero": lambda: torch.nonzero(x),
+             "mask": lambda: x[x > 0],
+             "copy": lambda: x.cpu()}
+    counted, modes = {}, []
+    hdk_tpu_torch.enable_debug_timer(True)
+    try:
+        for name, run in cases.items():
+            with timer.DebugTimer(name) as t:
+                modes.append(torch.cuda.get_sync_debug_mode())
+                run()
+            counted[name] = t.node.syncs
+        # between roots the mode is back
+        modes.append(torch.cuda.get_sync_debug_mode())
+        with timer.DebugTimer("query") as q:
+            got = s.sql(sql)
+    finally:
+        hdk_tpu_torch.enable_debug_timer(False)
+    assert modes == [1] * len(cases) + [mode]
+    assert torch.cuda.get_sync_debug_mode() == mode
+    assert all(n >= 1 for n in counted.values()), counted
+
+    def syncs(node):
+        return node.syncs + sum(syncs(c) for c in node.children)
+
+    in_steps = sum(syncs(c) for c in q.node.children
+                   if c.name.startswith("step:"))
+    assert in_steps >= 1, q.node.to_dict()
+    assert got.to_numpy()["c"][0] == warm["c"][0] == 20000
