@@ -11,7 +11,10 @@ Phases, each printed as it runs:
      the card, at 100M rows and the main path's segment counts (random
      ids; sorted ids at the sort route's 50M-group buffer; K1, K3 and K4
      also at TPC-H Q1's layout, K1 at taxi Q2's, K2 at the NULL-heavy
-     query's), each case timed beside
+     query's), each random-id case again with the ids as a dense-key
+     source, and each kernel over the keys of taxi Q1-Q4 and TPC-H Q1/Q6
+     (``ids=keys``, beside the kernel over the built array and the time
+     to build it), each case timed beside
      its bound
      (bytes over the device-memory rate), its share of that bound, and
      the one PyTorch call that computes the same function where there is
@@ -193,6 +196,27 @@ MAIN_SHAPES = ((7, LINEITEM_ROWS, "groupby_sums", "float64"),
                (7, LINEITEM_ROWS, "seg_sums_exact", "int8"),
                (7, LINEITEM_ROWS, "count_hist", None),
                (1001, NULLS_ROWS, "groupby_sums2", "bool"))
+# the main path's dense-key sources in phase 3, each kernel deriving the
+# ids from the keys as the group-by hands them over: (label, rows, keys as
+# (dtype, min, max), share of rows the row mask keeps or None, the kernels
+# with their slot kinds); dictionary codes are int32, EXTRACT(year) int64,
+# the CAST int32; TPC-H Q1's date filter keeps ~98% of the rows, Q6's ~2%
+KEYED_SHAPES = (
+    ("taxi_q1", TAXI_ROWS, ((torch.int32, 0, 1),), None,
+     (("count_hist", None),)),
+    ("taxi_q2", TAXI_ROWS, ((torch.int8, 0, 8),), None,
+     (("groupby_sums", "float32"), ("count_hist", None))),
+    ("taxi_q3", TAXI_ROWS, ((torch.int8, 0, 8), (torch.int64, 2009, 2015)),
+     None, (("count_hist", None),)),
+    ("taxi_q4", TAXI_ROWS, ((torch.int8, 0, 8), (torch.int64, 2009, 2015),
+                            (torch.int32, 0, 33)), None,
+     (("count_hist", None),)),
+    ("tpch_q1", LINEITEM_ROWS, ((torch.int32, 0, 2), (torch.int32, 0, 1)),
+     0.98, (("groupby_sums", "float64"), ("seg_sums_exact", "int8"),
+            ("count_hist", None))),
+    ("tpch_q6", LINEITEM_ROWS, (), 0.02,
+     (("groupby_sums", "float64_1"), ("count_hist", None))),
+)
 
 
 _START = time.perf_counter()
@@ -376,17 +400,34 @@ HBM_BYTES_PER_S = 3.35e12
 
 # slots of each kernel case: (slot kind, columns, bytes per value)
 SLOT_SHAPES = {None: (0, 0), "bool": (2, 1), "int8": (1, 1), "int64": (1, 8),
-               "float32": (1, 4), "float64": (4, 8)}
+               "float32": (1, 4), "float64": (4, 8), "float64_1": (1, 8)}
 
 
-def bound_ms(n: int, kind, e: int) -> float:
-    """Least time of a histogram on the card: gid (4 B/row) and the slots
-    read once, S x E 8-byte sums written once (E counts for K4), over
-    the device-memory rate; the kernels do 1 add a value, far under the
-    card's operation rate."""
+def bound_ms(n: int, kind, e: int, id_bytes: int = 4) -> float:
+    """Least time of a histogram on the card: the ids (``id_bytes`` a
+    row: 4 B of gid, or the keys at their widths and the mask bytes of a
+    dense-key source) and the slots read once, S x E 8-byte sums written
+    once (E counts for K4), over the device-memory rate; the kernels do
+    1 add a value, far under the card's operation rate."""
     cols, width = SLOT_SHAPES[kind]
-    nbytes = 4 * n + n * cols * width + 8 * max(cols, 1) * e
+    nbytes = id_bytes * n + n * cols * width + 8 * max(cols, 1) * e
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def keyed_source(hist, keys, rows: int, keep, gen, dev):
+    """A dense-key source over random keys, each uniform over its
+    (dtype, min, max), with a row mask keeping a ``keep`` share of the
+    rows (None: no mask); its bytes a row."""
+    cols = [torch.randint(lo, hi + 1, (rows,), device=dev, generator=gen,
+                          dtype=dtype) for dtype, lo, hi in keys]
+    mask = (None if keep is None
+            else torch.rand((rows,), device=dev, generator=gen) < keep)
+    src = hist.DenseKeys(tuple(cols), (None,) * len(cols),
+                         tuple(lo for _, lo, _ in keys),
+                         tuple(hi - lo + 1 for _, lo, hi in keys), mask, rows,
+                         dev)
+    return src, (sum(c.element_size() for c in cols)
+                 + (0 if mask is None else 1))
 
 
 def kernel_cases(hist):
@@ -419,14 +460,21 @@ def kernel_cases(hist):
 
 
 def kernel_phase(hist, entries, sorted_entries, card, main_shapes=(),
-                 n=KERNEL_ROWS, device="cuda"):
+                 n=KERNEL_ROWS, device="cuda", keyed_shapes=()):
     """Every kernel against its plain version at ``n`` rows: over random
     group ids at each of ``entries`` segments, over sorted ids at each of
     ``sorted_entries`` (the sort route's buffers), and one kernel alone at
     each (E, rows, kernel, slot kind) of ``main_shapes``. Random ids are
     checked with ids beyond both ends (those rows drop out) and timed on
-    ids in [0, E), beside the library call on the same ids. ``device`` and
-    ``n`` are for a rehearsal on the CPU.
+    ids in [0, E), beside the library call on the same ids.  Beside each
+    random-id case the same kernel takes the ids as a dense-key source of
+    one int32 key holding them (``ids`` "keys"), and each of
+    ``keyed_shapes`` runs its kernels over its own keys: against the
+    plain version (the id array built, then the ``*_ref``), beside the
+    kernel over the prebuilt array (``array_ms``) and the time to build
+    that array (``gid_ms``, the chain of passes the keys replace); the
+    bound counts the keys' bytes.  ``device`` and ``n`` are for a
+    rehearsal on the CPU.
     """
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -447,6 +495,7 @@ def kernel_phase(hist, entries, sorted_entries, card, main_shapes=(),
         "float64": [torch.rand((n,), device=dev, generator=gen,
                                dtype=torch.float64) * 1e4 for _ in range(4)],
     }
+    slots["float64_1"] = slots["float64"][:1]
     # index_add_ takes one (N, S) source: stacked here, outside its timing
     stacked = {"int64": slots["int64"],
                "float64": torch.stack(slots["float64"], 1)}
@@ -456,6 +505,35 @@ def kernel_phase(hist, entries, sorted_entries, card, main_shapes=(),
               + [(e, False, rows, (name, kind))
                  for e, rows, name, kind in main_shapes])
     report = {}
+
+    def record(name, kind, e, rows, is_sorted, ids, got, want, ms,
+               batched_ms, plain_ms, library_ms, bound, label="", **extra):
+        err = float((got - want).abs().max()) if want.numel() else 0.0
+        if got.dtype.is_floating_point:
+            ok = torch.allclose(got, want, rtol=1e-10, atol=0.0)
+            tol = "rtol 1e-10 (atomic float order varies)"
+        else:
+            ok = bool(torch.equal(got, want))
+            tol = "exact"
+        check(ok, f"{name}[{kind}] E={e} {ids}: kernel disagrees "
+                  f"(max abs err {err})")
+        more = "".join(f" {k}={v!r}" for k, v in extra.items())
+        log(f"kernel {name:15s} slots={kind or '-':9s} N={rows} E={e} "
+            f"ids={ids}{' ' + label if label else ''} "
+            f"{'sorted ' if is_sorted else ''}ok ({tol}) "
+            f"max_abs_err={err!r} kernel_ms={ms!r} "
+            f"batched_ms={batched_ms!r} "
+            f"plain_ms={plain_ms!r} library_ms={library_ms!r}{more} "
+            f"bound_ms={bound!r} share={bound / ms!r} [{card}]")
+        rec = report.setdefault(name, {"max_abs_err": 0.0, "cases": []})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["cases"].append({
+            "slots": kind, "S": SLOT_SHAPES[kind][0], "E": e, "N": rows,
+            "sorted": is_sorted, "ids": ids, "label": label, "ms": ms,
+            "batched_ms": batched_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **extra, "bound_ms": bound,
+            "share": bound / ms})
+
     for e, is_sorted, rows, only in shapes:
         if is_sorted:
             gid = torch.sort(torch.randint(0, e, (rows,), device=dev,
@@ -477,16 +555,6 @@ def kernel_phase(hist, entries, sorted_entries, card, main_shapes=(),
             got = kern(check_gid, v, e)
             want = ref(check_gid, v, e)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if got.dtype.is_floating_point:
-                ok = torch.allclose(got, want, rtol=1e-10, atol=0.0)
-                tol = "rtol 1e-10 (atomic float order varies)"
-            else:
-                ok = bool(torch.equal(got, want))
-                tol = "exact"
-            check(ok, f"{name}[{kind}] E={e}: kernel disagrees "
-                      f"(max abs err {err})")
-            del got, want
             ms = cuda_ms(lambda: kern(gid, v, e))
             batched_ms = cuda_ms_batched(lambda: kern(gid, v, e))
             plain_ms = cuda_ms(lambda: ref(gid, v, e))
@@ -495,22 +563,48 @@ def kernel_phase(hist, entries, sorted_entries, card, main_shapes=(),
                 src = stacked.get(kind)
                 src = src[:rows] if src is not None else None
                 library_ms = cuda_ms(lambda: lib(gid, src, e))
-            bound = bound_ms(rows, kind, e)
-            log(f"kernel {name:15s} slots={kind or '-':8s} N={rows} E={e} "
-                f"{'sorted ' if is_sorted else ''}ok ({tol}) "
-                f"max_abs_err={err!r} kernel_ms={ms!r} "
-                f"batched_ms={batched_ms!r} "
-                f"plain_ms={plain_ms!r} library_ms={library_ms!r} "
-                f"bound_ms={bound!r} share={bound / ms!r} [{card}]")
-            rec = report.setdefault(name, {"max_abs_err": 0.0, "cases": []})
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec["cases"].append({
-                "slots": kind, "S": SLOT_SHAPES[kind][0], "E": e, "N": rows,
-                "sorted": is_sorted, "ms": ms, "batched_ms": batched_ms,
-                "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": bound,
-                "share": bound / ms})
+            record(name, kind, e, rows, is_sorted, "array", got, want, ms,
+                   batched_ms, plain_ms, library_ms, bound_ms(rows, kind, e))
+            del got, want
+            if is_sorted:
+                continue  # the sort route's ids come from no keys
+            # the same ids as one int32 key over [0, E): the kernel
+            # derives them (the bound is the same 4 B a row)
+            check_keys = hist.DenseKeys((check_gid,), (None,), (0,), (e,),
+                                        None, rows, dev)
+            keys = hist.DenseKeys((gid,), (None,), (0,), (e,), None, rows,
+                                  dev)
+            got = kern(check_keys, v, e)
+            want = ref(check_keys, v, e)
+            torch.cuda.synchronize()
+            record(name, kind, e, rows, False, "keys", got, want,
+                   cuda_ms(lambda: kern(keys, v, e)),
+                   cuda_ms_batched(lambda: kern(keys, v, e)),
+                   cuda_ms(lambda: ref(keys, v, e)), None,
+                   bound_ms(rows, kind, e), array_ms=ms)
+            del got, want, check_keys, keys
         del gid, check_gid
+    for label, rows, key_shape, keep, kernels in keyed_shapes:
+        src, id_bytes = keyed_source(hist, key_shape, rows, keep, gen, dev)
+        e = src.n_entries
+        gid = src.gid()[0]
+        gid_ms = cuda_ms(lambda: src.gid())
+        for name, kind in kernels:
+            _, _, kern, ref, _ = next(c for c in cases if c[0] == name)
+            v = slots[kind] if kind else None
+            if v is not None and rows != n:
+                v = [c[:rows] for c in v] if isinstance(v, list) else v[:rows]
+            got = kern(src, v, e)
+            want = ref(gid, v, e)
+            torch.cuda.synchronize()
+            record(name, kind, e, rows, False, "keys", got, want,
+                   cuda_ms(lambda: kern(src, v, e)),
+                   cuda_ms_batched(lambda: kern(src, v, e)),
+                   cuda_ms(lambda: ref(src, v, e)), None,
+                   bound_ms(rows, kind, e, id_bytes), label=label,
+                   array_ms=cuda_ms(lambda: kern(gid, v, e)), gid_ms=gid_ms)
+            del got, want
+        del src, gid
     return report
 
 
@@ -559,7 +653,7 @@ def taxi_phase(hdk_mod, hdk, data, card, hist):
         schema={"pickup_datetime": t.timestamp(t.TimeUnit.SECOND, False)})
 
     res = timed_query(lambda: ht.agg("cab_type", "count").run(), card,
-                      "taxi_q1", TAXI_ROWS, hist, [])
+                      "taxi_q1", TAXI_ROWS, hist, ["count_hist"])
     taxi_check("q1", res.to_numpy(), data)
 
     res = timed_query(
@@ -619,7 +713,7 @@ def tpch_phase(hdk_mod, hdk, card, hist):
     tpch_q1_check(list(res.to_numpy().values()), li, "tpch_q1")
 
     res = timed_query(lambda: hdk.sql(TPCH_Q6), card, "tpch_q6",
-                      LINEITEM_ROWS, hist, [])
+                      LINEITEM_ROWS, hist, ["groupby_sums", "count_hist"])
     tpch_q6_check(res, li, "tpch_q6")
 
     res = timed_query(lambda: hdk.sql(SCALAR_SUBQUERY), card,
@@ -3326,22 +3420,28 @@ def main() -> None:
     log(f"taxi data: {TAXI_ROWS} rows generated in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # phase 3: kernels against their plain versions; the group-by hands
-    # them entry_count + 1 segments (the last one discards dead rows)
+    # phase 3: kernels against their plain versions; the sort route hands
+    # them entry_count + 1 segments (the last one discards dead rows), the
+    # dense route its keys
     entries = (11, 12, taxi_q4_entries(taxi) + 1, 65536)
     # HN1's group buffer: 50M keys + a NULL slot, + the discard segment;
     # K1, K3 and K4 alone at TPC-H Q1's layout (6 groups), K1 at taxi
     # Q2's (9 groups), K2 at the nulls query's (1000 groups)
     report = kernel_phase(hist, entries, (HIGH_NDV_KEYS + 2,), card,
-                          main_shapes=MAIN_SHAPES)
+                          main_shapes=MAIN_SHAPES, keyed_shapes=KEYED_SHAPES)
     torch.cuda.empty_cache()
 
-    # phase 4: the main path; counters count its launches only
+    # phase 4: the main path; counters count its launches only; every
+    # aggregate there is a sum, so every dense and scalar reduction hands
+    # the kernels its keys
     log("sizes cut: taxi 100M rows of the reference's 1.1B and TPC-H "
         "lineitem SF10 (60M rows) of its SF100, for host-side data "
         "generation time and host RAM; phase 9 streams lineitem at SF100 "
         "(600M rows), uncut")
+    from hdk_tpu_torch.exec import groupby as gb
+
     hist.reset_launches()
+    gb.reset_gid_sources()
     taxi_phase(hdk_tpu_torch, hdk, taxi, card, hist)
     del taxi
     tpch_phase(hdk_tpu_torch, hdk, card, hist)
@@ -3349,6 +3449,10 @@ def main() -> None:
     launches = hist.launches()
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the main path")
+    sources = gb.gid_sources()
+    log(f"main path: group id sources {sources}")
+    check(sources["array"] == 0 and sources["keys"] > 0,
+          f"a main-path reduction built its id array ({sources})")
     log_device_cache("phase 4")
 
     # phases 5-6: the sort route, its launches counted apart
@@ -3458,8 +3562,8 @@ def main() -> None:
         # the headline case: taxi Q4's segment count, the kernel's widest
         # slots that one library call also computes
         kind = REPORTED_SLOTS[name]
-        q4 = next(c for c in rec["cases"]
-                  if c["E"] == entries[2] and c["slots"] == kind)
+        q4 = next(c for c in rec["cases"] if c["E"] == entries[2]
+                  and c["slots"] == kind and c["ids"] == "array")
         kernels.append({
             "name": name, "route": "cuda",
             "source": SOURCES[name],

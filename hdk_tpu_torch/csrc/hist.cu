@@ -12,12 +12,21 @@
 //
 // The integer histograms, K2 (bool counts), K3 (exact integer sums) and K4
 // (counts), are one kernel of their own in int_hist.cu.
+//
+// The group ids come from an int32 gid array or, on the perfect-hash route
+// and for scalar aggregates, from the raw key columns (dense_gid.cuh): the
+// template flag kKeyed picks the source, and the C entry points take a
+// DenseKeys pointer, null for the array.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "dense_gid.cuh"
+
 namespace {
+
+using hdk::DenseKeys;
 
 __device__ __forceinline__ void atomic_add(double* p, double v) {
   atomicAdd(p, v);
@@ -30,11 +39,12 @@ __device__ __forceinline__ void atomic_add(double* p, double v) {
 // float64 sums of S float32 or float64 columns, rows with gid outside [0, E)
 // dropped.  The mechanism is Hopper's.
 //
-// What bounds it: bytes, 4 + S * sizeof(T) per row read once, plus 8 * S * E
-// written.  The first, generic histogram template lost to contention
-// instead: at E = 7 or 10 every lane of every warp added into a handful of
-// shared addresses, and it read rows row-major, so the caller stacked the
-// columns into an (N, S) copy first.  This kernel:
+// What bounds it: bytes, 4 (or the keys' bytes) + S * sizeof(T) per row
+// read once, plus 8 * S * E written.  The first, generic histogram
+// template lost to contention instead: at E = 7 or 10 every lane of every
+// warp added into a handful of shared addresses, and it read rows
+// row-major, so the caller stacked the columns into an (N, S) copy first.
+// This kernel:
 //   * reads the caller's columns where they lie: up to kMaxCols pointers in a
 //     by-value parameter struct (more columns take several launches);
 //   * loads 16 bytes a lane (an int4 of gid, a float4 or two double2 of each
@@ -89,10 +99,11 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   v[3] = b.y;
 }
 
-template <typename T, int S, int kMode>
+template <typename T, int S, int kMode, bool kKeyed>
 __global__ void __launch_bounds__(kK1Threads)
-    k1_kernel(const int32_t* __restrict__ gid, const Cols<T> cols,
-              int64_t n_rows, int64_t n_entries, double* __restrict__ out) {
+    k1_kernel(const int32_t* __restrict__ gid, const DenseKeys keys,
+              const Cols<T> cols, int64_t n_rows, int64_t n_entries,
+              double* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* acc = reinterpret_cast<double*>(smem_raw);
   const int lane = threadIdx.x & 31;
@@ -116,18 +127,14 @@ __global__ void __launch_bounds__(kK1Threads)
     int k[4];
     double v[S][4];
     if (r0 + 4 <= n_rows) {
-      const int4 g = __ldcs(reinterpret_cast<const int4*>(gid + r0));
-      k[0] = g.x;
-      k[1] = g.y;
-      k[2] = g.z;
-      k[3] = g.w;
+      hdk::load_gid4<kKeyed, true>(gid, keys, r0, n_rows, k);
 #pragma unroll
       for (int s = 0; s < S; ++s) load4(cols.p[s] + r0, v[s]);
     } else {  // the ragged end
+      hdk::load_gid4<kKeyed, false>(gid, keys, r0, n_rows, k);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool in = r0 + j < n_rows;
-        k[j] = in ? gid[r0 + j] : -1;
 #pragma unroll
         for (int s = 0; s < S; ++s)
           v[s][j] = in ? static_cast<double>(cols.p[s][r0 + j]) : 0.0;
@@ -204,10 +211,11 @@ __global__ void __launch_bounds__(kK1Threads)
   }
 }
 
-template <typename T, int S, int kMode>
-int k1_launch_mode(const int32_t* gid, const Cols<T>& cols, int64_t n_rows,
-                   int64_t n_entries, double* out, cudaStream_t stream) {
-  auto* kernel = k1_kernel<T, S, kMode>;
+template <typename T, int S, int kMode, bool kKeyed>
+int k1_launch_mode(const int32_t* gid, const DenseKeys& keys,
+                   const Cols<T>& cols, int64_t n_rows, int64_t n_entries,
+                   double* out, cudaStream_t stream) {
+  auto* kernel = k1_kernel<T, S, kMode, kKeyed>;
   const int warps = kK1Threads / 32;
   const int64_t copy = static_cast<int64_t>(S) * n_entries * sizeof(double);
   const size_t smem = static_cast<size_t>(
@@ -234,42 +242,61 @@ int k1_launch_mode(const int32_t* gid, const Cols<T>& cols, int64_t n_rows,
   const int64_t wanted = (n_tiles + warps - 1) / warps;
   if (grid > wanted) grid = wanted;
   kernel<<<static_cast<unsigned>(grid), kK1Threads, smem, stream>>>(
-      gid, cols, n_rows, n_entries, out);
+      gid, keys, cols, n_rows, n_entries, out);
   return cudaGetLastError();
 }
 
+// the ids from `keys` where it is given, else from `gid`
+template <typename T, int S, int kMode>
+int k1_launch_source(const int32_t* gid, const DenseKeys* keys,
+                     const Cols<T>& cols, int64_t n_rows, int64_t n_entries,
+                     double* out, cudaStream_t stream) {
+  return keys != nullptr
+             ? k1_launch_mode<T, S, kMode, true>(gid, *keys, cols, n_rows,
+                                                 n_entries, out, stream)
+             : k1_launch_mode<T, S, kMode, false>(gid, DenseKeys{}, cols,
+                                                  n_rows, n_entries, out,
+                                                  stream);
+}
+
 template <typename T, int S>
-int k1_launch_s(const int32_t* gid, const Cols<T>& cols, int64_t n_rows,
-                int64_t n_entries, double* out, int mode,
-                cudaStream_t stream) {
+int k1_launch_s(const int32_t* gid, const DenseKeys* keys,
+                const Cols<T>& cols, int64_t n_rows, int64_t n_entries,
+                double* out, int mode, cudaStream_t stream) {
   switch (mode) {
     case kWarpPrivate:
-      return k1_launch_mode<T, S, kWarpPrivate>(gid, cols, n_rows, n_entries,
-                                                out, stream);
-    case kBlockShared:
-      return k1_launch_mode<T, S, kBlockShared>(gid, cols, n_rows, n_entries,
-                                                out, stream);
-    case kGlobalAtomics:
-      return k1_launch_mode<T, S, kGlobalAtomics>(gid, cols, n_rows,
+      return k1_launch_source<T, S, kWarpPrivate>(gid, keys, cols, n_rows,
                                                   n_entries, out, stream);
+    case kBlockShared:
+      return k1_launch_source<T, S, kBlockShared>(gid, keys, cols, n_rows,
+                                                  n_entries, out, stream);
+    case kGlobalAtomics:
+      return k1_launch_source<T, S, kGlobalAtomics>(gid, keys, cols, n_rows,
+                                                    n_entries, out, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// gid and every column 16-byte aligned (the wrapper sees to it)
+// gid (or the key source's columns) and every column 16-byte aligned (the
+// wrapper sees to it)
 template <typename T>
 int k1_launch(const int32_t* gid, const void* const* ptrs, int64_t n_rows,
               int64_t n_slots, int64_t n_entries, double* out, int mode,
-              cudaStream_t stream) {
+              const DenseKeys* keys, cudaStream_t stream) {
   if (n_rows <= 0 || n_slots <= 0 || n_entries <= 0) return cudaSuccess;
   if (n_slots > kMaxCols || n_entries > INT32_MAX) return cudaErrorInvalidValue;
+  if (keys != nullptr) {
+    const int err = hdk::check_keys(*keys);
+    if (err != cudaSuccess) return err;
+  }
   Cols<T> cols{};
   for (int s = 0; s < n_slots; ++s) cols.p[s] = static_cast<const T*>(ptrs[s]);
   switch (n_slots) {
 #define HDK_K1_SLOTS(N) \
   case N:               \
-    return k1_launch_s<T, N>(gid, cols, n_rows, n_entries, out, mode, stream);
+    return k1_launch_s<T, N>(gid, keys, cols, n_rows, n_entries, out, mode, \
+                             stream);
     HDK_K1_SLOTS(1)
     HDK_K1_SLOTS(2)
     HDK_K1_SLOTS(3)
@@ -286,18 +313,30 @@ int k1_launch(const int32_t* gid, const void* const* ptrs, int64_t n_rows,
 
 }  // namespace
 
+// The ids come from `gid`, or, where `keys` is not null, from the
+// dense-key source it points at (gid is then not read).  The build
+// compiles this file once a part, -DHDK_PART=0 (f32) and 1 (f64), each
+// instantiating its own kernels.
+#ifndef HDK_PART
+#error "compile with -DHDK_PART=<part> (kernels/build.py does)"
+#endif
+
 extern "C" {
 
 #define HDK_GROUPBY_SUMS_COLS(SUFFIX, T)                                       \
-  int hdk_groupby_sums_cols_##SUFFIX(const int32_t* gid,                       \
-                                     const void* const* cols, int64_t n_rows, \
-                                     int64_t n_slots, int64_t n_entries,      \
-                                     double* out, int mode, void* stream) {   \
+  int hdk_groupby_sums_cols_##SUFFIX(                                          \
+      const int32_t* gid, const void* const* cols, int64_t n_rows,            \
+      int64_t n_slots, int64_t n_entries, double* out, int mode,              \
+      const DenseKeys* keys, void* stream) {                                  \
     return k1_launch<T>(gid, cols, n_rows, n_slots, n_entries, out, mode,     \
-                        static_cast<cudaStream_t>(stream));                   \
+                        keys, static_cast<cudaStream_t>(stream));             \
   }
+#if HDK_PART == 0
 HDK_GROUPBY_SUMS_COLS(f32, float)
+#endif
+#if HDK_PART == 1
 HDK_GROUPBY_SUMS_COLS(f64, double)
+#endif
 #undef HDK_GROUPBY_SUMS_COLS
 
 }  // extern "C"

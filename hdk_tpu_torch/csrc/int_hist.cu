@@ -16,12 +16,18 @@
 // and equal the plain versions bit for bit.  The TPU kernels were one-hot
 // MXU contractions with f32 or int32 accumulators, E <= 4096 and N < 2^24
 // a call; none of those limits applies here.  K4 is K3 with an implicit
-// column of ones: `int_hist_kernel<CountTag, 1, mode>` reads gid alone.
-// K2 is K3 over 0/1 bytes (`int_hist_kernel<uint8_t, S, mode>`): a bool
-// column is read as bytes, any nonzero byte counting one.
+// column of ones: `int_hist_kernel<CountTag, 1, ...>` reads the ids
+// alone.  K2 is K3 over 0/1 bytes (`int_hist_kernel<uint8_t, S, ...>`): a
+// bool column is read as bytes, any nonzero byte counting one.
 //
-// What bounds them: device-memory bytes, 4 B of gid plus each column at
-// its own width per row, read once; 8 B per output sum.  The first,
+// The group ids come from an int32 gid array or, on the perfect-hash route
+// and for scalar aggregates, from the raw key columns (dense_gid.cuh): a
+// template flag, kKeyed, picks the source, and the C entry points take a
+// DenseKeys pointer, null for the array.
+//
+// What bounds them: device-memory bytes, 4 B of gid (or each key at its
+// width) plus each column at its own width per row, read once; 8 B per
+// output sum.  The first,
 // generic template (K2's until it moved here) read 4 B of gid a thread, the
 // slots row-major from a stacked (N, S) copy, and sent one atomic per row
 // and slot to a handful of shared addresses at small E.  This kernel follows
@@ -70,7 +76,11 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "dense_gid.cuh"
+
 namespace {
+
+using hdk::DenseKeys;
 
 constexpr int kTileRows = 128;  // a warp step: 4 rows a lane
 constexpr int kMaxCols = 8;
@@ -287,12 +297,15 @@ __device__ __forceinline__ void add_sorted_step(
 }
 
 // out[s * out_stride + e] += the sums of the rows with gid == e_lo + e,
-// for 0 <= e < n_entries; `out` points at the range's first entry
-template <typename T, int S, int kMode>
+// for 0 <= e < n_entries; `out` points at the range's first entry.  The
+// ids come from `gid`, or with kKeyed from `keys` (dense_gid.cuh): a
+// launch over one range of E derives them again, as it reads gid again.
+template <typename T, int S, int kMode, bool kKeyed>
 __global__ void __launch_bounds__(threads_of<T, S, kMode>())
-    int_hist_kernel(const int32_t* __restrict__ gid, const Cols<T> cols,
-                    int64_t n_rows, int e_lo, int n_entries,
-                    int64_t out_stride, unsigned long long* __restrict__ out) {
+    int_hist_kernel(const int32_t* __restrict__ gid, const DenseKeys keys,
+                    const Cols<T> cols, int64_t n_rows, int e_lo,
+                    int n_entries, int64_t out_stride,
+                    unsigned long long* __restrict__ out) {
   constexpr bool kCount = std::is_same<T, CountTag>::value;
   // 0/1 values (counts, bools): group totals by ballots, not shuffles
   constexpr bool kUnit = Traits<T>::kMaxAbs == 1;
@@ -322,24 +335,19 @@ __global__ void __launch_bounds__(threads_of<T, S, kMode>())
     int k[4];
     P v[S][4];
     if (r0 + 4 <= n_rows) {
-      const int4 g = __ldcs(reinterpret_cast<const int4*>(gid + r0));
-      k[0] = g.x;
-      k[1] = g.y;
-      k[2] = g.z;
-      k[3] = g.w;
+      hdk::load_gid4<kKeyed, true>(gid, keys, r0, n_rows, k);
       if constexpr (!kCount) {
 #pragma unroll
         for (int s = 0; s < S; ++s) load4(cols.p[s] + r0, v[s]);
       }
     } else {  // the ragged end
+      hdk::load_gid4<kKeyed, false>(gid, keys, r0, n_rows, k);
+      if constexpr (!kCount) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool in = r0 + j < n_rows;
-        k[j] = in ? gid[r0 + j] : -1;
-        if constexpr (!kCount) {
+        for (int j = 0; j < 4; ++j) {
 #pragma unroll
           for (int s = 0; s < S; ++s)
-            v[s][j] = in ? one(cols.p[s] + r0 + j) : P(0);
+            v[s][j] = r0 + j < n_rows ? one(cols.p[s] + r0 + j) : P(0);
         }
       }
     }
@@ -455,14 +463,14 @@ __global__ void __launch_bounds__(threads_of<T, S, kMode>())
   }
 }
 
-template <typename T, int S, int kMode>
-int launch_mode(const int32_t* gid, const Cols<T>& cols, int64_t n_rows,
-                int e_lo, int n_entries, int64_t out_stride,
+template <typename T, int S, int kMode, bool kKeyed>
+int launch_mode(const int32_t* gid, const DenseKeys& keys, const Cols<T>& cols,
+                int64_t n_rows, int e_lo, int n_entries, int64_t out_stride,
                 unsigned long long* out, cudaStream_t stream) {
   using P = typename Traits<T>::P;
   constexpr int kThreads = threads_of<T, S, kMode>();
   constexpr int kWarps = kThreads / 32;
-  auto* kernel = int_hist_kernel<T, S, kMode>;
+  auto* kernel = int_hist_kernel<T, S, kMode, kKeyed>;
   const int64_t copy = static_cast<int64_t>(S) * n_entries * sizeof(P);
   const int64_t copies = kMode == kLanePrivate ? kThreads : 1;
   // global mode: a scratch of kTileRows keys and sums a warp
@@ -505,19 +513,29 @@ int launch_mode(const int32_t* gid, const Cols<T>& cols, int64_t n_rows,
     }
   }
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
-      gid, cols, n_rows, e_lo, n_entries, out_stride, out);
+      gid, keys, cols, n_rows, e_lo, n_entries, out_stride, out);
   return cudaGetLastError();
 }
 
+// the ids from `keys` where it is given, else from `gid`
 template <typename T, int S>
-int launch_s(const int32_t* gid, const Cols<T>& cols, int64_t n_rows,
-             int e_lo, int n_entries, int64_t out_stride,
+int launch_s(const int32_t* gid, const DenseKeys* keys, const Cols<T>& cols,
+             int64_t n_rows, int e_lo, int n_entries, int64_t out_stride,
              unsigned long long* out, int mode, cudaStream_t stream) {
+  if (keys != nullptr) {
+    const int err = hdk::check_keys(*keys);
+    if (err != cudaSuccess) return err;
+  }
   switch (mode) {
-#define HDK_INT_MODE(M)                                                    \
-  case M:                                                                  \
-    return launch_mode<T, S, M>(gid, cols, n_rows, e_lo, n_entries,        \
-                                out_stride, out, stream);
+#define HDK_INT_MODE(M)                                                     \
+  case M:                                                                   \
+    return keys != nullptr                                                  \
+               ? launch_mode<T, S, M, true>(gid, *keys, cols, n_rows, e_lo, \
+                                            n_entries, out_stride, out,     \
+                                            stream)                         \
+               : launch_mode<T, S, M, false>(gid, DenseKeys{}, cols, n_rows, \
+                                             e_lo, n_entries, out_stride,   \
+                                             out, stream);
     HDK_INT_MODE(kLanePrivate)
     HDK_INT_MODE(kBlockShared)
     HDK_INT_MODE(kGlobalAtomics)
@@ -531,12 +549,13 @@ bool bad_range(int64_t e_lo, int64_t n_entries) {
   return e_lo < 0 || n_entries > INT32_MAX || e_lo > INT32_MAX - n_entries;
 }
 
-// gid and every column 16-byte aligned (the wrapper sees to it)
+// gid (or the key source's columns) and every column 16-byte aligned (the
+// wrapper sees to it)
 template <typename T>
 int launch(const int32_t* gid, const void* const* ptrs, int64_t n_rows,
            int64_t n_slots, int64_t e_lo, int64_t n_entries,
            int64_t out_stride, unsigned long long* out, int mode,
-           cudaStream_t stream) {
+           const DenseKeys* keys, cudaStream_t stream) {
   if (n_rows <= 0 || n_slots <= 0 || n_entries <= 0) return cudaSuccess;
   if (n_slots > kMaxCols || bad_range(e_lo, n_entries))
     return cudaErrorInvalidValue;
@@ -547,8 +566,8 @@ int launch(const int32_t* gid, const void* const* ptrs, int64_t n_rows,
   switch (n_slots) {
 #define HDK_INT_SLOTS(N)                                                    \
   case N:                                                                   \
-    return launch_s<T, N>(gid, cols, n_rows, lo, e, out_stride, out, mode, \
-                          stream);
+    return launch_s<T, N>(gid, keys, cols, n_rows, lo, e, out_stride, out, \
+                          mode, stream);
     HDK_INT_SLOTS(1)
     HDK_INT_SLOTS(2)
     HDK_INT_SLOTS(3)
@@ -565,43 +584,65 @@ int launch(const int32_t* gid, const void* const* ptrs, int64_t n_rows,
 
 }  // namespace
 
+// Every entry point takes its ids from `gid`, or, where `keys` is not
+// null, from the dense-key source it points at (gid is then not read).
+// The build compiles this file once a part, -DHDK_PART=0..5 (counts,
+// bool, int8, int16, int32, int64), each instantiating its own kernels.
+#ifndef HDK_PART
+#error "compile with -DHDK_PART=<part> (kernels/build.py does)"
+#endif
+
 extern "C" {
 
+#if HDK_PART == 0
 // counts of gid - e_lo in [0, n_entries) into out[0 .. n_entries)
 int hdk_count_hist(const int32_t* gid, int64_t n_rows, int64_t e_lo,
                    int64_t n_entries, unsigned long long* out, int mode,
-                   void* stream) {
+                   const DenseKeys* keys, void* stream) {
   if (n_rows <= 0 || n_entries <= 0) return cudaSuccess;
   if (bad_range(e_lo, n_entries)) return cudaErrorInvalidValue;
-  return launch_s<CountTag, 1>(gid, Cols<CountTag>{}, n_rows,
+  return launch_s<CountTag, 1>(gid, keys, Cols<CountTag>{}, n_rows,
                                static_cast<int>(e_lo),
                                static_cast<int>(n_entries), n_entries, out,
                                mode, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 #define HDK_SEG_SUMS_EXACT(SUFFIX, T)                                       \
   int hdk_seg_sums_exact_##SUFFIX(                                          \
       const int32_t* gid, const void* const* cols, int64_t n_rows,          \
       int64_t n_slots, int64_t e_lo, int64_t n_entries, int64_t out_stride, \
-      unsigned long long* out, int mode, void* stream) {                    \
+      unsigned long long* out, int mode, const DenseKeys* keys,             \
+      void* stream) {                                                       \
     return launch<T>(gid, cols, n_rows, n_slots, e_lo, n_entries,           \
-                     out_stride, out, mode,                                 \
+                     out_stride, out, mode, keys,                           \
                      static_cast<cudaStream_t>(stream));                    \
   }
+#if HDK_PART == 2
 HDK_SEG_SUMS_EXACT(i8, int8_t)
+#endif
+#if HDK_PART == 3
 HDK_SEG_SUMS_EXACT(i16, int16_t)
+#endif
+#if HDK_PART == 4
 HDK_SEG_SUMS_EXACT(i32, int32_t)
+#endif
+#if HDK_PART == 5
 HDK_SEG_SUMS_EXACT(i64, int64_t)
+#endif
 #undef HDK_SEG_SUMS_EXACT
 
+#if HDK_PART == 1
 // K2: bool columns (bytes 0 or 1), counts of true per entry
 int hdk_groupby_sums2_b8(const int32_t* gid, const void* const* cols,
                          int64_t n_rows, int64_t n_slots, int64_t e_lo,
                          int64_t n_entries, int64_t out_stride,
-                         unsigned long long* out, int mode, void* stream) {
+                         unsigned long long* out, int mode,
+                         const DenseKeys* keys, void* stream) {
   return launch<uint8_t>(gid, cols, n_rows, n_slots, e_lo, n_entries,
-                         out_stride, out, mode,
+                         out_stride, out, mode, keys,
                          static_cast<cudaStream_t>(stream));
 }
+#endif
 
 }  // extern "C"

@@ -446,13 +446,10 @@ class AggExecMixin:
                 if layout is not None:
                     keys = [_broadcast(self.scalar.evaluate(k, resolve),
                                        rows) for k in node.keys]
-                    gid, _ = gb.perfect_gid(keys, layout, rm)
-                elif rm is None:
-                    gid = torch.zeros((rows,), dtype=torch.int32,
-                                      device=self.device)
+                    src = gb.dense_keys(keys, layout, rm)
                 else:
-                    gid = torch.where(rm, 0, 1).to(torch.int32)
-                return gb.reduce_slots(specs, gid, n)
+                    src = gb.scalar_keys(rows, rm, self.device)
+                return gb.reduce_slots(specs, src, n)
 
             return fn
 

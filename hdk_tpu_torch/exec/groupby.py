@@ -16,6 +16,14 @@ share one call of ``ops/onehot.seg_sums``, which runs the histogram
 kernels above ``_FEW_SEGMENTS`` segments; on sorted ids each group adds
 only its own rows, in int64 or float64.
 
+The dense route and the one-group case hand ``reduce_slots`` no id array
+but its source, a ``kernels.hist.DenseKeys`` over the keys, the layout and
+the row mask.  Where every aggregate is a sum (COUNT, SUM, AVG,
+STDDEV/VAR, none DISTINCT) the kernels derive each row's id from the keys
+on a CUDA device, at any segment count; other aggregates, more than
+``hist.MAX_KEYS`` keys or key types the kernels do not read build the
+array once (``perfect_gid``).  ``gid_sources()`` counts the two.
+
 Aggregate cells: COUNT(*) counts rows; COUNT(col) counts non-null;
 SUM/MIN/MAX/AVG skip nulls and give NULL for all-null groups; AVG is a
 (sum, count) pair finalized at the end; STDDEV/VAR use (sum, sumsq, count)
@@ -38,6 +46,7 @@ import torch
 
 from .. import types as t
 from ..ir.expr import AggKind
+from ..kernels import hist
 from ..ops import onehot, sketches
 from ..ops import sortops as so
 from .masked import MaskedCol, combine_masks, torch_dtype
@@ -242,12 +251,14 @@ def _sum_plan(spec: AggSpec, gid: torch.Tensor, num: int,
     return None
 
 
-def _seg_sum_many(cols: Sequence[torch.Tensor], gid: torch.Tensor, num: int,
-                  ones_obj: Optional[torch.Tensor] = None
+def _seg_sum_many(cols: Sequence[torch.Tensor], gid: hist.GidSource,
+                  num: int, ones_obj: Optional[torch.Tensor] = None
                   ) -> List[torch.Tensor]:
     """Segment sums of many columns in one ``seg_sums`` call; duplicate
     column objects (shared ones/masks) are summed once, and ``ones_obj``
-    (the all-ones COUNT column) becomes a count of gid."""
+    (the all-ones COUNT column) becomes a count of gid.  A dense-key
+    source goes to the kernels on a CUDA device whatever ``num``; on the
+    CPU it builds its array first."""
     uniq: Dict[int, int] = {}
     ucols: List[torch.Tensor] = []
     slots = []
@@ -256,7 +267,9 @@ def _seg_sum_many(cols: Sequence[torch.Tensor], gid: torch.Tensor, num: int,
             uniq[id(c)] = len(ucols)
             ucols.append(c)
         slots.append(uniq[id(c)])
-    if num <= _FEW_SEGMENTS:
+    if isinstance(gid, hist.DenseKeys) and gid.device.type != "cuda":
+        gid = gid.gid()[0]
+    if num <= _FEW_SEGMENTS and isinstance(gid, torch.Tensor):
         results = [_seg_sum(c, gid, num) for c in ucols]
     else:
         ones_ids = [i for i, c in enumerate(ucols) if c is ones_obj]
@@ -424,17 +437,31 @@ def _orderable_int64(data: torch.Tensor) -> torch.Tensor:
     return data.to(torch.int64)
 
 
+def scalar_keys(nrows: int, row_mask: Optional[torch.Tensor],
+                device: torch.device) -> hist.DenseKeys:
+    """The id source of a scalar aggregate: no keys, every live row in
+    entry 0."""
+    return hist.DenseKeys((), (), (), (), row_mask, nrows, device)
+
+
 def nogroup_agg(specs: Sequence[AggSpec], nrows: int,
                 row_mask: Optional[torch.Tensor],
                 device: torch.device) -> List[MaskedCol]:
-    """Scalar aggregation: one group; filtered rows go to the discard
-    segment."""
-    gid = (torch.zeros((nrows,), dtype=torch.int32, device=device)
-           if row_mask is None
-           else torch.where(row_mask, 0, 1).to(torch.int32))
-    agg_cols, _exists = _reduce_specs(specs, gid, 1)
+    """Scalar aggregation: one group; filtered rows drop out."""
+    agg_cols, _exists = _reduce_specs(specs,
+                                      scalar_keys(nrows, row_mask, device), 1)
     return [MaskedCol(c.data[0], c.mask[0] if c.mask is not None else None)
             for c in agg_cols]
+
+
+def dense_keys(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
+               row_mask: Optional[torch.Tensor]) -> hist.DenseKeys:
+    """The dense layout's id source over the key columns: the kernels
+    derive a row's id from it, ``perfect_gid`` builds the array."""
+    return hist.DenseKeys(tuple(k.data for k in keys),
+                          tuple(k.mask for k in keys), tuple(layout.mins),
+                          tuple(layout.sizes), row_mask,
+                          keys[0].data.shape[0], keys[0].data.device)
 
 
 def perfect_gid(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
@@ -442,22 +469,7 @@ def perfect_gid(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense positional group id per row (int32); out-of-range and dead
     rows map to the discard segment ``entry_count``."""
-    n = layout.entry_count
-    gid = torch.zeros(keys[0].data.shape, dtype=torch.int64,
-                      device=keys[0].data.device)
-    stride = 1
-    # row-major over keys, first key outermost
-    for key, mn, size in zip(reversed(list(keys)), reversed(layout.mins),
-                             reversed(layout.sizes)):
-        idx = key.data.to(torch.int64) - mn
-        if key.mask is not None:
-            idx = torch.where(key.mask, idx, size - 1)
-        gid = gid + idx * stride
-        stride *= size
-    in_range = (gid >= 0) & (gid < n)
-    if row_mask is not None:
-        in_range = in_range & row_mask
-    return torch.where(in_range, gid, n).to(torch.int32), in_range
+    return dense_keys(keys, layout, row_mask).gid()
 
 
 def groupby_perfect(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
@@ -469,12 +481,12 @@ def groupby_perfect(keys: Sequence[MaskedCol], layout: PerfectHashLayout,
     Returns (key_columns, agg_columns, exists), all with
     ``layout.entry_count`` entries; ``exists`` marks observed groups and
     the caller compacts."""
-    gid, _ = perfect_gid(keys, layout, row_mask)
-    agg_cols, exists = _reduce_specs(specs, gid, layout.entry_count)
+    agg_cols, exists = _reduce_specs(specs, dense_keys(keys, layout, row_mask),
+                                     layout.entry_count)
     return _perfect_key_columns(keys, layout), agg_cols, exists
 
 
-def _reduce_specs(specs: Sequence[AggSpec], gid: torch.Tensor, n: int
+def _reduce_specs(specs: Sequence[AggSpec], gid: hist.GidSource, n: int
                   ) -> Tuple[List[MaskedCol], torch.Tensor]:
     """(finalized aggregate columns, exists) over rows with dense group
     ids in [0, n); rows with gid n drop out."""
@@ -482,14 +494,52 @@ def _reduce_specs(specs: Sequence[AggSpec], gid: torch.Tensor, n: int
     return ([r.finalize(s) for r, s in zip(results, specs)], counts > 0)
 
 
-def reduce_slots(specs: Sequence[AggSpec], gid: torch.Tensor, n: int
+# aggregates whose every slot is a sum: the kernels take a key source
+_SUM_KINDS = frozenset({AggKind.COUNT, AggKind.SUM, AggKind.AVG,
+                        AggKind.STDDEV_SAMP, AggKind.VAR_SAMP})
+_GID_SOURCES = {"keys": 0, "array": 0}
+
+
+def gid_sources() -> Dict[str, int]:
+    """Dense-route and scalar reductions whose key source went to the
+    histogram step (``keys``: on a CUDA device the kernels derived the
+    ids), against those that built the id array (``array``)."""
+    return dict(_GID_SOURCES)
+
+
+def reset_gid_sources() -> None:
+    for k in _GID_SOURCES:
+        _GID_SOURCES[k] = 0
+
+
+def _takes_keys(specs: Sequence[AggSpec], src: hist.DenseKeys) -> bool:
+    return src.kernel_ready() and all(
+        s.kind in _SUM_KINDS and not s.distinct for s in specs)
+
+
+def reduce_slots(specs: Sequence[AggSpec], gid: hist.GidSource, n: int
                  ) -> Tuple[List[AggResult], torch.Tensor]:
     """(each aggregate's raw slots, rows a group) over rows with dense
-    group ids in [0, n); rows with gid n drop out.  One seg_sums call
-    takes the row counts and every sum-shaped slot.  A group without
-    non-NULL values holds the identity in its MIN/MAX slot, so partial
-    slots of disjoint rows merge by sum, min and max."""
-    ones = torch.ones(gid.shape, dtype=torch.bool, device=gid.device)
+    group ids in [0, n); rows with gid n drop out.  ``gid`` is an array
+    or a dense-key source (``n`` its entry count), which the sums take
+    as it is where every aggregate is sum-shaped and which otherwise
+    builds its array here.  One seg_sums call takes the row counts and
+    every sum-shaped slot.  A group without non-NULL values holds the
+    identity in its MIN/MAX slot, so partial slots of disjoint rows merge
+    by sum, min and max."""
+    num = n + 1  # an array's discard segment; a key source drops rows
+    if isinstance(gid, hist.DenseKeys):
+        keyed = _takes_keys(specs, gid)
+        _GID_SOURCES["keys" if keyed else "array"] += 1
+        if keyed:
+            num = n
+        else:
+            gid = gid.gid()[0]
+    n_rows = gid.n_rows if isinstance(gid, hist.DenseKeys) else gid.shape[0]
+    # the all-ones COUNT column, a broadcast view: the kernels count the
+    # ids and never read it
+    ones = torch.ones((1,), dtype=torch.bool,
+                      device=gid.device).expand(n_rows)
     batch_cols: List[torch.Tensor] = [ones]
     plans = []
     for spec in specs:
@@ -501,7 +551,7 @@ def reduce_slots(specs: Sequence[AggSpec], gid: torch.Tensor, n: int
             plans.append((idxs, resolve))
         else:
             plans.append(None)
-    sums = _seg_sum_many(batch_cols, gid, n + 1, ones_obj=ones)
+    sums = _seg_sum_many(batch_cols, gid, num, ones_obj=ones)
     results = []
     for spec, plan in zip(specs, plans):
         if plan is None:

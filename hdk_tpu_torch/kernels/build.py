@@ -1,8 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``hdk_tpu_torch/csrc``.
 
-Each source compiles with its own ``nvcc``, all started together, and the
-objects link into one shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers: a build takes seconds).  The library lands
+Each source compiles once for each part of its entry points (``nvcc
+-DHDK_PART=k``: a part instantiates only its own kernels), every part
+with its own ``nvcc``, all started together, and the objects link into
+one shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers: a build takes seconds).  The library lands
 in ``hdk_tpu_torch/_build/``, named by a hash of the sources and flags, so
 an edited source rebuilds at first use and an unchanged one loads from
 disk.  Nothing is built at import time.
@@ -32,24 +34,44 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("hist.cu", "int_hist.cu")
+# each source and the number of parts its entry points are split into:
+# hist.cu f32 | f64; int_hist.cu counts | bool | int8 | int16 | int32 |
+# int64 (a part of 48 kernels builds in about a fifth of the time of all)
+SOURCES = {"hist.cu": 2, "int_hist.cu": 6}
+HEADERS = ("dense_gid.cuh",)  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _COLS = ctypes.POINTER(_P)  # a host array of column pointers
+_KEYS_MAX = 4
+
+
+class DenseKeysC(ctypes.Structure):
+    """``csrc/dense_gid.cuh::DenseKeys``, field for field (all 8 bytes, so
+    neither side pads): the raw key columns a launch derives its group
+    ids from, in place of a gid array."""
+
+    _fields_ = [("key", _P * _KEYS_MAX), ("valid", _P * _KEYS_MAX),
+                ("row_mask", _P), ("width", _I * _KEYS_MAX),
+                ("min", _I * _KEYS_MAX), ("size", _I * _KEYS_MAX),
+                ("stride", _I * _KEYS_MAX), ("n_keys", _I),
+                ("n_entries", _I)]
+
+
+_KEYS = ctypes.POINTER(DenseKeysC)  # null: the ids come from gid
 # C entry points -> cudaError_t.  csrc/hist.cu (K1): (gid, column pointers,
-# n_rows, n_slots, n_entries, out, mode, stream); csrc/int_hist.cu (K2-K4):
-# (gid, [column pointers,] n_rows, [n_slots,] e_lo, n_entries,
-# [out_stride,] out, mode, stream) over the entries e_lo .. e_lo +
+# n_rows, n_slots, n_entries, out, mode, keys, stream); csrc/int_hist.cu
+# (K2-K4): (gid, [column pointers,] n_rows, [n_slots,] e_lo, n_entries,
+# [out_stride,] out, mode, keys, stream) over the entries e_lo .. e_lo +
 # n_entries of gid
-_INT_COLS = [_P, _COLS, _I, _I, _I, _I, _I, _P, ctypes.c_int, _P]
+_INT_COLS = [_P, _COLS, _I, _I, _I, _I, _I, _P, ctypes.c_int, _KEYS, _P]
 _SIGNATURES = {
     **{f"hdk_groupby_sums_cols_{sfx}":
-       [_P, _COLS, _I, _I, _I, _P, ctypes.c_int, _P]
+       [_P, _COLS, _I, _I, _I, _P, ctypes.c_int, _KEYS, _P]
        for sfx in ("f32", "f64")},
-    "hdk_count_hist": [_P, _I, _I, _I, _P, ctypes.c_int, _P],
+    "hdk_count_hist": [_P, _I, _I, _I, _P, ctypes.c_int, _KEYS, _P],
     **{f"hdk_seg_sums_exact_{sfx}": _INT_COLS
        for sfx in ("i8", "i16", "i32", "i64")},
     "hdk_groupby_sums2_b8": _INT_COLS,
@@ -72,8 +94,9 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         h.update((SRC_DIR / name).read_bytes())
+    h.update(repr(SOURCES).encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"hdk_kernels_{h.hexdigest()[:16]}.so"
 
@@ -93,13 +116,14 @@ def _run(cmd) -> subprocess.CompletedProcess:
 
 
 def _compile(out_dir: str, extra=()) -> list:
-    """One ``nvcc -c`` a source, all at once; returns (object path,
-    nvcc's stderr) per source in SOURCES order."""
+    """One ``nvcc -c`` a part of a source, all at once; returns (object
+    path, nvcc's stderr) per part in SOURCES order."""
     procs = []
-    for name in SOURCES:
-        obj = os.path.join(out_dir, name + ".o")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-c", "-o", obj,
-               str(SRC_DIR / name)]
+    for name, part in [(n, k) for n, parts in SOURCES.items()
+                       for k in range(parts)]:
+        obj = os.path.join(out_dir, f"{name}.{part}.o")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, f"-DHDK_PART={part}", "-c",
+               "-o", obj, str(SRC_DIR / name)]
         procs.append((obj, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     done = []

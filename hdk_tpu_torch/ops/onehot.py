@@ -48,15 +48,18 @@ def _group(columns: Sequence[torch.Tensor], skip) -> Dict[Tuple[str, torch.dtype
     return groups
 
 
-def seg_sums(columns: Sequence[torch.Tensor], gid: torch.Tensor, n: int,
+def seg_sums(columns: Sequence[torch.Tensor], gid: hist.GidSource, n: int,
              ones_ids: Sequence[int] = ()) -> List[torch.Tensor]:
-    """Per-segment sums of several 1-D columns over int32 ``gid``.
+    """Per-segment sums of several 1-D columns over int32 ``gid``, or over
+    the ids a ``hist.DenseKeys`` source gives (each kernel derives them
+    from the keys; ``n`` is then the layout's entry count).
 
     Returns one (n,) tensor per column: int64 for integer and bool
     inputs, float64 for floating ones.  ``ones_ids``: indices of columns
     the caller asserts are all ones (COUNT slots); their sums are the
     counts of gid and the column itself is never read."""
-    gid = gid.contiguous()
+    if isinstance(gid, torch.Tensor):
+        gid = gid.contiguous()
     out: List[Optional[torch.Tensor]] = [None] * len(columns)
     if ones_ids:
         counts = hist.count_hist(gid, n)

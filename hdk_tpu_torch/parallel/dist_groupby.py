@@ -118,9 +118,9 @@ def dist_groupby_perfect(mesh, keys, layout: gb.PerfectHashLayout, specs,
     n = layout.entry_count
     results, exists_l = [], []
     for s in range(mesh.local_size):
-        gid, _ = gb.perfect_gid([k[s] for k in keys], layout,
-                                None if row_valid is None else row_valid[s])
-        res, counts = gb.reduce_slots(_shard_specs(specs, s), gid, n)
+        src = gb.dense_keys([k[s] for k in keys], layout,
+                            None if row_valid is None else row_valid[s])
+        res, counts = gb.reduce_slots(_shard_specs(specs, s), src, n)
         results.append(res)
         exists_l.append((counts > 0).to(torch.int32))
     exists = commlog.psum(exists_l)[0] > 0

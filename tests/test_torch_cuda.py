@@ -1,8 +1,10 @@
 """The CUDA kernels on the card: each against its plain version, in both
 the shared-memory and the global-atomic mode and over the sorted group
 ids of the sort-based group-by, K1 at the shapes its design treats
-apart, and the main path, the sort route, scalar subqueries, joins,
-window functions, array columns, the streaming top-n (against the full
+apart, each kernel over the dense-key source in every mode, the
+benchmark's dense and scalar shapes, and the main path, the sort route,
+scalar subqueries, joins, window functions, array columns, the
+streaming top-n (against the full
 sort), the executor's controls (fragment streaming and skipping, the
 watchdog, route feedback, EXPLAIN ANALYZE)
 and the facade (a stream, a UDF, a spilled result) on a CUDA session
@@ -12,11 +14,16 @@ offload and ``clear_device_mem`` free.  Skips where there is no card.  On the ca
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import importlib
+import os
+
 import numpy as np
 import pytest
 import torch
 
+import dense_key_cases
 import hdk_tpu_torch
+from hdk_tpu_torch.exec import groupby as gb
 from hdk_tpu_torch.kernels import hist
 from hdk_tpu_torch.ops import onehot
 
@@ -213,6 +220,114 @@ def test_groupby_sums_cols_every_mode(cuda, monkeypatch, case, mode):
     torch.testing.assert_close(got, hist.groupby_sums_ref(gid, cols,
                                                           n_entries),
                                rtol=1e-10, atol=0)
+
+
+# Every kernel handed the dense-key source (csrc/dense_gid.cuh) against
+# its plain version over the id array DenseKeys.gid builds, bit for bit
+# (floats to rtol 1e-10: atomic adds run in no fixed order), in every mode
+# its wrapper may pick: a copy per lane or warp (2, small E), per block (1;
+# E = 70350 splits K2-K4 into ranges, each launch deriving the ids again),
+# global atomics (0).  The keys of tests/dense_key_cases.py: every perfect
+# key type, NULL keys, zero to four keys, composites outside [0, E) and
+# int64 products that wrap; a row mask; a ragged row count.
+_SPLIT = [(np.int32, 0, 349, False, 0), (np.int16, 0, 199, True, 1)]
+_KEYED_CASES = ([(c, m) for c in ("scalar", "int8", "int16_nullable")
+                 for m in (2, 1, 0)]
+                + [(c, m) for c in ("dict_date", "bool_int64_int8",
+                                    "four_keys", "outside") for m in (1, 0)]
+                + [("split", 1), ("split", 0)])
+
+
+def _card_keys(case, n, seed, device):
+    keys = _SPLIT if case == "split" else dense_key_cases.CASES[case]
+    cols, mins, sizes = dense_key_cases.columns(keys, n, seed)
+    rm = torch.from_numpy(dense_key_cases.row_mask(n, seed)).to(device)
+    return hist.DenseKeys(
+        tuple(torch.from_numpy(d).to(device) for d, _ in cols),
+        tuple(None if v is None else torch.from_numpy(v).to(device)
+              for _, v in cols), tuple(mins), tuple(sizes), rm, n, device)
+
+
+@pytest.mark.parametrize("case,mode", _KEYED_CASES)
+def test_keyed_kernels_match_plain_versions(cuda, monkeypatch, case, mode):
+    n = 2_000_003  # a ragged end
+    src = _card_keys(case, n, len(case) + mode, cuda)
+    e = src.n_entries
+    gen = torch.Generator(device=cuda).manual_seed(mode)
+    flags = [torch.rand((n,), device=cuda, generator=gen) < 0.5
+             for _ in range(2)]
+    small = [torch.randint(-128, 128, (n,), device=cuda, generator=gen,
+                           dtype=torch.int8)]
+    ints = [torch.randint(-2**62, 2**62, (n,), device=cuda, generator=gen,
+                          dtype=torch.int64) for _ in range(2)]
+    f32 = [torch.rand((n,), device=cuda, generator=gen) * 100]
+    f64 = [torch.rand((n,), device=cuda, generator=gen,
+                      dtype=torch.float64) * 1e4 for _ in range(4)]
+    refs = {k.__name__: getattr(hist, k.__name__ + "_ref")
+            for k in hist.KERNELS}
+    gid = src.gid()[0]  # the plain versions' array, built on the card
+    _refuse_plain_versions(monkeypatch)
+    k1_mode = hist._k1_mode
+
+    def k1_forced(s, entries):
+        # a K1 copy per warp or per block only where shared memory holds it
+        fits = {2: s * entries * 8 * 8, 1: s * entries * 8, 0: 0}[mode]
+        return mode if fits <= hist.SMEM_LIMIT_BYTES else k1_mode(s, entries)
+
+    monkeypatch.setattr(hist, "_int_mode", lambda s, entries, d=None: mode)
+    monkeypatch.setattr(hist, "_k1_mode", k1_forced)
+    before = hist.launches()
+    assert torch.equal(hist.count_hist(src, e), refs["count_hist"](gid, e))
+    assert torch.equal(hist.groupby_sums2(src, flags, e),
+                       refs["groupby_sums2"](gid, flags, e))
+    for v in (small, ints):
+        assert torch.equal(hist.seg_sums_exact(src, v, e),
+                           refs["seg_sums_exact"](gid, v, e))
+    for v in (f32, f64):
+        torch.testing.assert_close(hist.groupby_sums(src, v, e),
+                                   refs["groupby_sums"](gid, v, e),
+                                   rtol=1e-10, atol=0)
+    torch.cuda.synchronize()
+    after = hist.launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        "count_hist": _int_launches(1, e),
+        "groupby_sums2": _int_launches(2, e, torch.bool),
+        "seg_sums_exact": (_int_launches(1, e, torch.int8)
+                           + _int_launches(2, e, torch.int64)),
+        "groupby_sums": 2}
+
+
+# The benchmark's dense and scalar shapes end to end, taxi Q1-Q4 and
+# TPC-H Q1/Q6 at a small scale of olap_bench's tables: on the card every
+# reduction hands the kernels the key source (none builds an id array,
+# none reaches a plain version), and the answers equal the CPU session's.
+@pytest.mark.parametrize("config,mix,scale", [
+    ("taxi", "taxi_q1_q4", 0.02), ("tpch_sf10", "tpch_q1_q6", 0.02)])
+def test_benchmark_shapes_take_keys(cuda, monkeypatch, config, mix, scale):
+    from olap_bench import harness, traffic
+
+    conf = harness.read_json(os.path.join(harness.ROOT, "olap_bench",
+                                          "configs", f"{config}.json"))
+    gen = importlib.import_module(f"olap_bench.data.{conf['generator']}")
+    tables = gen.generate(conf, 2 ** 33 + 5, scale)
+    rows = {t: len(next(iter(c.values()))) for t, c in tables.items()}
+    out = []
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            _refuse_plain_versions(monkeypatch)
+        hdk = hdk_tpu_torch.HDK(device=device, **conf.get("session", {}))
+        for name, cols in tables.items():
+            hdk.import_arrow(harness.to_arrow(
+                cols, conf["tables"][name]["columns"]), name=name)
+        shapes = traffic.build(traffic.load(mix), hdk, rows, conf)
+        gb.reset_gid_sources()
+        hist.reset_launches()
+        out.append([[s.call().to_numpy() for s in shapes]
+                    for _ in range(3)][-1])
+    sources = gb.gid_sources()
+    assert sources["array"] == 0 and sources["keys"] >= 3 * len(shapes)
+    assert hist.launches()["count_hist"] > 0
+    _same_results([s.name for s in shapes], out)
 
 
 def test_scalar_subquery_on_the_card(cuda):

@@ -20,6 +20,8 @@ from hdk_tpu_torch.exec import groupby as tgb
 from hdk_tpu_torch.exec.masked import from_numpy
 from hdk_tpu_torch.ops import onehot as tonehot
 
+import dense_key_cases
+
 
 def _jcol(data, mask=None):
     return JCol(jnp.asarray(data), None if mask is None else jnp.asarray(mask))
@@ -204,3 +206,118 @@ def test_unported_aggregates_raise():
                 jgb.AggKind[kind], _jcol(data, mask),
                 hdk_tpu.types.int64(False), arg1=k)], 10, jnp.asarray(rm))
             _same_cols(got, want, exact_upto=1)
+
+
+# -- the dense-key source: the kernels' plain versions over keys ----------
+
+def _key_source(case, rows, seed, masked):
+    """(the port's key source, the JAX package's perfect_gid over the same
+    keys, the row mask) of a case of ``dense_key_cases``."""
+    cols, mins, sizes = dense_key_cases.columns(dense_key_cases.CASES[case],
+                                                rows, seed)
+    rm = dense_key_cases.row_mask(rows, seed) if masked else None
+    trm = None if rm is None else torch.from_numpy(rm)
+    if not cols:  # a scalar aggregate: every live row in entry 0
+        want = np.where(rm, 0, 1) if masked else np.zeros(rows)
+        return (tgb.scalar_keys(rows, trm, "cpu"), want.astype(np.int32),
+                rm)
+    src = tgb.dense_keys([_tcol(d, m) for d, m in cols],
+                         tgb.PerfectHashLayout(mins, sizes), trm)
+    want, _ = jgb.perfect_gid(
+        [_jcol(d, m) for d, m in cols],
+        jgb.PerfectHashLayout(mins, sizes, [m is not None for _d, m in cols]),
+        None if rm is None else jnp.asarray(rm))
+    return src, np.array(want), rm
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", list(dense_key_cases.CASES))
+def test_dense_keys_equal_perfect_gid(case, masked):
+    """Each wrapper handed the key source equals its plain version over
+    the JAX package's ``perfect_gid``: every perfect key type, NULL keys,
+    a row mask, zero to four keys, composites outside [0, E)."""
+    from hdk_tpu_torch.kernels import hist
+
+    rows = 4000
+    src, want_gid, _rm = _key_source(case, rows, len(case), masked)
+    gid, in_range = src.gid()
+    assert gid.dtype == torch.int32
+    _same(gid, want_gid)
+    _same(in_range, want_gid < src.n_entries)
+    ref = torch.from_numpy(want_gid)
+    e = src.n_entries
+    rng = np.random.default_rng(9)
+    flags = torch.from_numpy(rng.random((rows, 2)) < 0.5)
+    ints = [torch.from_numpy(rng.integers(-2**62, 2**62, rows)),
+            torch.from_numpy(rng.integers(-128, 128, rows).astype(np.int8))]
+    floats = [torch.from_numpy(rng.gamma(2.0, 5.0, rows)),
+              torch.from_numpy(rng.gamma(2.0, 5.0, rows).astype(np.float32))]
+    _same(hist.count_hist(src, e), hist.count_hist_ref(ref, e))
+    _same(hist.groupby_sums2(src, flags, e),
+          hist.groupby_sums2_ref(ref, flags, e))
+    for col in ints:
+        _same(hist.seg_sums_exact(src, [col], e),
+              hist.seg_sums_exact_ref(ref, [col], e))
+    for col in floats:
+        _same(hist.groupby_sums(src, [col], e),
+              hist.groupby_sums_ref(ref, [col], e))
+    with pytest.raises(ValueError, match="entries"):
+        hist.count_hist(src, e + 1)
+
+
+@pytest.mark.parametrize("aggs,n_keys,want", [
+    (["COUNT", "SUM", "AVG", "STDDEV_SAMP", "VAR_SAMP"], 2, "keys"),
+    (["COUNT", "SUM"], 0, "keys"),
+    (["COUNT", "MIN"], 2, "array"),
+    (["SUM", "MAX"], 0, "array"),
+    (["COUNT", "COUNT_DISTINCT"], 2, "array"),
+    (["SUM", "QUANTILE"], 1, "array"),
+    (["COUNT", "SUM"], 5, "array"),
+])
+def test_gid_sources(aggs, n_keys, want):
+    """Sum-shaped aggregates hand the key source on; a MIN/MAX, COUNT
+    DISTINCT or quantile, or five keys, build the id array once.  The
+    answers equal the JAX package's either way."""
+    rows = 3000
+    rng = np.random.default_rng(n_keys)
+    x = (rng.integers(-10**9, 10**9, rows), rng.random(rows) >= 0.1)
+    rm = rng.random(rows) < 0.8
+    keys = (dense_key_cases.FIVE_KEYS if n_keys == 5
+            else dense_key_cases.CASES["bool_int64_int8"][:n_keys])
+    cols, mins, sizes = dense_key_cases.columns(keys, rows, 3)
+
+    def specs(mod, gbmod, col):
+        out = []
+        for name in aggs:
+            kind = gbmod.AggKind[name]
+            out.append(gbmod.AggSpec(
+                kind, None if name == "COUNT" else col(*x),
+                mod.types.fp64(True) if name in ("AVG", "STDDEV_SAMP",
+                                                 "VAR_SAMP", "QUANTILE")
+                else mod.types.int64(True),
+                arg1=0.5 if name == "QUANTILE" else None))
+        return out
+
+    tspecs = specs(hdk_tpu_torch, tgb, _tcol)
+    jspecs = specs(hdk_tpu, jgb, _jcol)
+    tgb.reset_gid_sources()
+    if n_keys:
+        lt = tgb.PerfectHashLayout(mins, sizes)
+        lj = jgb.PerfectHashLayout(mins, sizes, [False] * n_keys)
+        _kt, got, et = tgb.groupby_perfect([_tcol(d, m) for d, m in cols],
+                                           lt, tspecs, torch.from_numpy(rm))
+        _kj, wanted, ej = jgb.groupby_perfect(
+            [_jcol(d, m) for d, m in cols], lj, jspecs, jnp.asarray(rm))
+        _same(et, ej)
+    else:
+        got = tgb.nogroup_agg(tspecs, rows, torch.from_numpy(rm), "cpu")
+        wanted = jgb.nogroup_agg(jspecs, rows, jnp.asarray(rm))
+    assert tgb.gid_sources() == {"keys": int(want == "keys"),
+                                 "array": int(want == "array")}
+    exact = sum(1 for a in aggs if a in ("COUNT", "SUM", "MIN", "MAX",
+                                         "COUNT_DISTINCT"))
+    order = [i for i, a in enumerate(aggs) if a in ("COUNT", "SUM", "MIN",
+                                                    "MAX", "COUNT_DISTINCT")]
+    order += [i for i in range(len(aggs)) if i not in order]
+    _same_cols([got[i] for i in order], [wanted[i] for i in order],
+               exact_upto=exact)

@@ -353,6 +353,61 @@ def test_int_ranges_split_block_shared_copies(monkeypatch):
     assert max(hi - lo for lo, hi in spans) <= hist._int_span(1, torch.int64)
 
 
+@pytest.mark.parametrize("name", [k.__name__ for k in hist.KERNELS])
+def test_dense_keys_launch_args(monkeypatch, name):
+    """A key source reaches every entry point as a DenseKeys struct in
+    place of the gid pointer: each key's pointer, width, min, size and
+    stride, the validity and row-mask pointers, E; a misaligned key is
+    copied first; each launch counts under its wrapper's name."""
+    n = 64
+    keys = (torch.zeros(n + 1, dtype=torch.int16)[1:],  # misaligned view
+            torch.zeros(n, dtype=torch.bool), torch.zeros(n, dtype=torch.int64))
+    valid = (None, torch.ones(n, dtype=torch.bool), None)
+    rm = torch.ones(n, dtype=torch.bool)
+    src = hist.DenseKeys(keys, valid, (-3, 0, 2009), (7, 3, 7), rm, n, "cpu")
+    assert src.n_entries == 147 and src.strides() == [21, 7, 1]
+    calls = _record_launches(monkeypatch)
+    structs = []
+    monkeypatch.setattr(hist, "_launch", lambda entry, gid, *args: (
+        calls.append((entry, args)), structs.append(args[-1]._obj)))
+    before = hist.launches()
+    slots = {"count_hist": (), "groupby_sums2": ([rm],),
+             "seg_sums_exact": ([keys[2]],),
+             "groupby_sums": ([torch.zeros(n, dtype=torch.float64)],)}[name]
+    getattr(hist, name)(src, *slots, 147)
+    assert hist.launches()[name] - before[name] == len(calls) == 1
+    (_entry, args), (c,) = calls[0], structs
+    assert args[0] is None  # no gid array
+    assert (c.n_keys, c.n_entries) == (3, 147)
+    assert list(c.width)[:3] == [2, 1, 8]
+    assert list(c.min)[:3] == [-3, 0, 2009]
+    assert list(c.size)[:3] == [7, 3, 7]
+    assert list(c.stride)[:3] == [21, 7, 1]
+    assert c.key[0] % 16 == 0 and c.key[0] != keys[0].data_ptr()
+    assert c.key[1:3] == [keys[1].data_ptr(), keys[2].data_ptr()]
+    assert c.valid[0] is None and c.valid[1] == valid[1].data_ptr()
+    assert c.row_mask == rm.data_ptr()
+
+
+def test_dense_keys_the_kernels_do_not_take(monkeypatch):
+    """Five keys or a key type the kernels do not read: the plain version
+    still takes the source, a launch refuses it."""
+    n = 16
+    five = hist.DenseKeys((torch.zeros(n, dtype=torch.int8),) * 5,
+                          (None,) * 5, (0,) * 5, (2,) * 5, None, n, "cpu")
+    wide = hist.DenseKeys((torch.zeros(n, dtype=torch.uint8),), (None,),
+                          (0,), (4,), None, n, "cpu")
+    for src in (five, wide):
+        assert not src.kernel_ready()
+        assert int(hist.count_hist(src, src.n_entries).sum()) == n
+    _record_launches(monkeypatch)
+    with pytest.raises(ValueError, match="no kernel takes keys"):
+        hist.count_hist(five, five.n_entries)
+    with pytest.raises(ValueError, match="rows"):
+        hist.DenseKeys((torch.zeros(n, dtype=torch.int8),), (None,), (0,),
+                       (2,), torch.ones(n + 1, dtype=torch.bool), n, "cpu")
+
+
 # -- seg_sums hands K1 the caller's columns ---------------------------------
 
 def test_seg_sums_passes_float_columns_unstacked(monkeypatch):
