@@ -22,7 +22,10 @@ the row mask.  Where every aggregate is a sum (COUNT, SUM, AVG,
 STDDEV/VAR, none DISTINCT) the kernels derive each row's id from the keys
 on a CUDA device, at any segment count; other aggregates, more than
 ``hist.MAX_KEYS`` keys or key types the kernels do not read build the
-array once (``perfect_gid``).  ``gid_sources()`` counts the two.
+array once (``perfect_gid``).  ``gid_sources()`` counts the two, and
+so do the debug timer's counters ``gid_keys`` and ``gid_array``; the
+array's build is the span ``agg:gid_array``, the sort of (group, value)
+pairs behind DISTINCT, quantiles and TOP_K the span ``agg:pair_sort``.
 
 Aggregate cells: COUNT(*) counts rows; COUNT(col) counts non-null;
 SUM/MIN/MAX/AVG skip nulls and give NULL for all-null groups; AVG is a
@@ -49,6 +52,7 @@ from ..ir.expr import AggKind
 from ..kernels import hist
 from ..ops import onehot, sketches
 from ..ops import sortops as so
+from ..utils import timer
 from .masked import MaskedCol, combine_masks, torch_dtype
 
 
@@ -366,9 +370,10 @@ def _sorted_pairs(v: MaskedCol, gid: torch.Tensor, num: int, vkey):
     """Rows sorted by (group, value key), NULL values moved to the
     discard segment ``num - 1``: (permutation, sorted gids, sorted
     keys)."""
-    key_g = gid if v.mask is None else torch.where(v.mask, gid, num - 1)
-    perm = so.lexsort([key_g, vkey])
-    return perm, key_g[perm], vkey[perm]
+    with timer.DebugTimer("agg:pair_sort"):
+        key_g = gid if v.mask is None else torch.where(v.mask, gid, num - 1)
+        perm = so.lexsort([key_g, vkey])
+        return perm, key_g[perm], vkey[perm]
 
 
 def _distinct_first_mask(v: MaskedCol, gid: torch.Tensor,
@@ -531,10 +536,12 @@ def reduce_slots(specs: Sequence[AggSpec], gid: hist.GidSource, n: int
     if isinstance(gid, hist.DenseKeys):
         keyed = _takes_keys(specs, gid)
         _GID_SOURCES["keys" if keyed else "array"] += 1
+        timer.count("gid_keys" if keyed else "gid_array")
         if keyed:
             num = n
         else:
-            gid = gid.gid()[0]
+            with timer.DebugTimer("agg:gid_array"):
+                gid = gid.gid()[0]
     n_rows = gid.n_rows if isinstance(gid, hist.DenseKeys) else gid.shape[0]
     # the all-ones COUNT column, a broadcast view: the kernels count the
     # ids and never read it

@@ -39,8 +39,18 @@ of the innermost open span.  The first root to open sets the sync debug
 mode to "warn" inside a ``warnings.catch_warnings()`` that takes those
 warnings; the last root to close puts the mode and the warning state
 back.  Where the mode was already set, or there is no CUDA, nothing is
-counted.  ``span_totals()`` sums self times (a span's ms less the ms of
-the spans opened inside it) and syncs by span name over every span
+counted.
+
+Named counters (``COUNTERS``) go on the innermost open span too:
+``count(name)`` adds to it while the timer is on.  ``exec/groupby.py``
+counts ``gid_array`` for a dense-route or scalar reduction that builds
+the group-id array, ``gid_keys`` for one whose ids the histogram step
+derives from the keys.  Its spans ``agg:gid_array`` (building the array)
+and ``agg:pair_sort`` (the sort of (group, value) pairs behind
+quantiles, DISTINCT and TOP_K) hang under the step that runs them.
+
+``span_totals()`` sums self times (a span's ms less the ms of the spans
+opened inside it), syncs and counters by span name over every span
 closed since the timer was turned on.
 """
 
@@ -60,8 +70,9 @@ _cuda = False
 _SYNC_WARNING = "called a synchronizing CUDA operation"
 _capture = None  # the warning state the open roots count syncs in
 _roots_open = 0  # roots open, every thread
-_totals: Dict[str, List[float]] = {}
+_totals: Dict[str, list] = {}
 _lock = threading.Lock()
+COUNTERS = ("gid_array", "gid_keys")
 
 
 def enable_debug_timer(on: bool = True) -> None:
@@ -114,9 +125,21 @@ def _root_closed() -> None:
         _capture = None
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (one of ``COUNTERS``) of this
+    thread's innermost open span; nothing while the timer is off or no
+    span is open."""
+    if name not in COUNTERS:
+        raise ValueError(f"no counter {name!r}; the counters: {COUNTERS}")
+    stack = getattr(_state, "stack", None) if _enabled else None
+    if stack:
+        counts = stack[-1].counts
+        counts[name] = counts.get(name, 0) + n
+
+
 class _TimerNode:
     __slots__ = ("name", "start", "elapsed_ms", "children", "stages",
-                 "syncs", "inner_ms", "stage")
+                 "syncs", "counts", "inner_ms", "stage")
 
     def __init__(self, name: str, stage: bool) -> None:
         self.name = name
@@ -127,11 +150,13 @@ class _TimerNode:
         self.children: List[_TimerNode] = []
         self.stages: List[_TimerNode] = []
         self.syncs = 0
+        self.counts: Dict[str, int] = {}
 
     def to_dict(self) -> Dict:
         out = {"name": self.name, "ms": round(self.elapsed_ms, 3)}
         if self.syncs:
             out["syncs"] = self.syncs
+        out.update(self.counts)
         if self.stages:
             out["stages"] = [c.to_dict() for c in self.stages]
         if self.children:
@@ -184,10 +209,13 @@ class DebugTimer:
         if self._root:
             _state.last_root = node
         with _lock:
-            tot = _totals.setdefault(node.name.split("#")[0], [0, 0.0, 0])
+            tot = _totals.setdefault(node.name.split("#")[0],
+                                     [0, 0.0, 0, {}])
             tot[0] += 1
             tot[1] += node.elapsed_ms - node.inner_ms
             tot[2] += node.syncs
+            for name, n in node.counts.items():
+                tot[3][name] = tot[3].get(name, 0) + n
         return False
 
 
@@ -206,7 +234,8 @@ def span_totals() -> Dict[str, Dict]:
     """Per span name (a step's ``#<id>`` dropped), over the spans of every
     thread closed since the timer was last turned on: ``{"spans": how
     many, "self_ms": their ms less the ms of the spans opened inside
-    them, "syncs": the syncs counted in them and not in an inner span}``."""
+    them, "syncs": the syncs counted in them and not in an inner span}``,
+    and beside ``syncs`` each of ``COUNTERS`` that counted in them."""
     with _lock:
-        return {k: {"spans": n, "self_ms": ms, "syncs": s}
-                for k, (n, ms, s) in _totals.items()}
+        return {k: {"spans": n, "self_ms": ms, "syncs": s, **counts}
+                for k, (n, ms, s, counts) in _totals.items()}

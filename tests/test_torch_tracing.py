@@ -6,7 +6,10 @@ CPU: the front end's stages (``sql:bind`` around ``sql:parse``,
 timer is off, and the sync counter's capture of PyTorch's sync warnings
 while a root is open (with ``torch.cuda``'s sync debug mode replaced by
 a stand-in: the CPU build has none).  On the card,
-``tests/test_torch_cuda.py`` counts real syncs."""
+``tests/test_torch_cuda.py`` counts real syncs.  A group-by that builds
+the group-id array (MEDIAN, STDDEV) opens ``agg:gid_array`` and
+``agg:pair_sort`` under its Aggregate step and counts ``gid_array`` on
+it; an all-sum one counts ``gid_keys``."""
 
 import threading
 import warnings
@@ -344,3 +347,61 @@ def test_a_sync_mode_already_set_is_kept(monkeypatch, mode):
             fake.sync()
     hdk_tpu_torch.enable_debug_timer(False)
     assert fake.sets == [] and fake.mode == mode and q.node.syncs == 0
+
+
+# db-benchmark q6's shape: a quantile and STDDEV by a key
+_MEDIAN = "SELECT g, MEDIAN(v) AS m, STDDEV(v) AS s FROM t GROUP BY g"
+
+
+def _counted(totals, name):
+    return sum(t.get(name, 0) for t in totals.values())
+
+
+def test_the_id_array_and_the_pair_sort_are_spans_of_the_step(session):
+    hdk_tpu_torch.enable_debug_timer(True)
+    with timer.DebugTimer("query") as q:
+        session.sql(_MEDIAN)
+    totals = timer.span_totals()
+    hdk_tpu_torch.enable_debug_timer(False)
+    aggs = [c for c in q.node.children
+            if c.name.startswith("step:Aggregate#")]
+    assert len(aggs) == 1
+    assert [c.name for c in aggs[0].children] == ["agg:gid_array",
+                                                 "agg:pair_sort"]
+    assert aggs[0].counts == {"gid_array": 1}
+    assert (_counted(totals, "gid_array"), _counted(totals, "gid_keys")) \
+        == (1, 0)
+    assert totals["step:Aggregate"]["gid_array"] == 1
+    assert totals["agg:gid_array"]["spans"] == 1
+    assert totals["agg:pair_sort"]["spans"] == 1
+    # the report and the harness's gap labels see them
+    step = next(c for c in hdk_tpu_torch.timer_report()["children"]
+                if c["name"].startswith("step:Aggregate#"))
+    assert step["gid_array"] == 1
+
+
+def test_an_all_sum_group_by_counts_keys_and_no_array(session):
+    hdk_tpu_torch.enable_debug_timer(True)
+    with timer.DebugTimer("query"):
+        session.sql(_SQL["group_by"])
+    totals = timer.span_totals()
+    hdk_tpu_torch.enable_debug_timer(False)
+    assert (_counted(totals, "gid_array"), _counted(totals, "gid_keys")) \
+        == (0, 1)
+    assert not [n for n in totals if n.startswith("agg:")]
+
+
+def test_timer_off_records_no_group_by_span_or_count(session):
+    hdk_tpu_torch.enable_debug_timer(True)
+    hdk_tpu_torch.enable_debug_timer(False)
+    before = hdk_tpu_torch.timer_report()
+    session.sql(_MEDIAN)
+    timer.count("gid_array")
+    assert timer.span_totals() == {}
+    assert hdk_tpu_torch.timer_report() == before
+
+
+def test_count_takes_only_known_counters():
+    with pytest.raises(ValueError, match="gid_arrays"):
+        timer.count("gid_arrays")
+    assert timer.COUNTERS == ("gid_array", "gid_keys")
