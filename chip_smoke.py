@@ -137,7 +137,14 @@ Phases, each printed as it runs:
      ``gen_ref_shapes``' 1M-row table in both sessions, the card's
      results equal to the CPU's (integers and NULLs exactly, floats to
      rtol 1e-9).  ``--phase15`` runs it alone after the build, without
-     the contract lines.
+     the contract lines;
+ 16. the exact quantiles' pair sort (``csrc/pair_sort.cu``): the kernels
+     against their plain version by ``torch.equal`` over 100M rows by
+     1e4 groups of ~1e4 rows (the block kernel) and 1e6 groups of ~100
+     (the warp kernel), each timed beside its bound and the plain
+     version, and the median through the key sort beside the
+     permutation's, equal by ``==``.  ``--phase16`` runs it alone after
+     the build, without the contract lines.
 Phases 5-6 are the sort route, phase 7 the join path, phase 8 the
 window path, phase 9 the controls, phase 10 the facade, phases 11
 and 12 the multi-device and multi-host paths, phase 13 the bench's,
@@ -149,10 +156,12 @@ and 12, the kernels
 of TPC-H Q3 on phase 7, W3's (K1 and K4) on phase 8, the streamed Q1's
 (K1, K3 and K4) on phase 9, S1's (K1, K3 and K4) and U1's (K1 and
 K4) on phase 10, K1, K3 and K4 on phase 13, and K1 (TPC-H Q3) and K4
-(HN2) on phase 14, and K1, K3 and K4 on phase 15.  Each phase ends with
-the device cache's evictions and resident bytes.  The line
+(HN2) on phase 14, and K1, K3 and K4 on phase 15; the pair sort must
+launch on phases 5-6 (the holistic MEDIAN and QUANTILE).  Each phase
+ends with the device cache's evictions and resident bytes.  The line
 before the last is a JSON object with the per-kernel results (every
-phase-3 case under ``cases``); the last line is
+phase-3 case under ``cases``, the pair sort's phase-16 cases under its
+own); the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
 non-zero and prints no result.  Needs numpy, torch and
 bench_common_torch.py beside it (the numpy oracles); imports neither
@@ -3348,6 +3357,90 @@ def surface_phase(hdk_mod, card, hist, device="cuda", sizes=None,
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches
 
+# -- phase 16: the exact quantiles' pair sort --------------------------------
+
+# (label, rows, groups) of the pair sort at the main path's shapes:
+# db-benchmark q6's MEDIAN over 1e8 rows by 1e4 groups of ~1e4 rows (the
+# block kernel) and 1e6 groups of ~100 (the warp kernel)
+PAIR_SORT_SHAPES = (("groups_1e4", KERNEL_ROWS, 10_000),
+                    ("groups_1e6", KERNEL_ROWS, 1_000_000))
+
+
+def pair_sort_bound_ms(rows: int) -> float:
+    """Least time of the pair sort on the card: the scatter reads a row's
+    value and id and writes its key, the per-group sort reads and writes
+    each key once, over the device-memory rate."""
+    nbytes = rows * ((8 + 4 + 8) + (8 + 8))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def pair_sort_phase(card, shapes=PAIR_SORT_SHAPES, device="cuda"):
+    """Phase 16: ``kernels/pairsort.py::group_sorted_keys`` against its
+    plain version by ``torch.equal`` at each (label, rows, groups) of
+    ``shapes``, over db-benchmark's six-decimal values, timed beside its
+    bound and the plain version; then the exact median through the key
+    sort (``_group_quantile_segsort``) beside the permutation
+    (``_group_quantile``), equal by ``==``.  Returns the cases.
+    ``device`` is for a rehearsal on the CPU."""
+    from hdk_tpu_torch.exec import groupby as gb
+    from hdk_tpu_torch.exec.masked import MaskedCol
+    from hdk_tpu_torch.kernels import pairsort
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cases = []
+    for label, rows, groups in shapes:
+        gid = torch.randint(0, groups, (rows,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        vals = torch.round(torch.rand((rows,), device=dev, generator=gen,
+                                      dtype=torch.float64) * 1e8) / 1e6
+        counts = torch.bincount(gid, minlength=groups)
+        largest = int(counts.max())
+        check(largest <= pairsort.CAPACITY,
+              f"pair sort {label}: a group of {largest} keys")
+        want = pairsort.group_sorted_keys_ref(vals, gid, None, counts)
+        before = pairsort.group_sorted_keys.launches
+        got = pairsort.group_sorted_keys(vals, gid, None, counts, largest)
+        sync()
+        check(pairsort.group_sorted_keys.launches
+              == before + (dev.type == "cuda"),
+              f"pair sort {label}: the kernels did not launch")
+        check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+              f"pair sort {label}: kernel disagrees with its plain version")
+        del got, want
+        run = (lambda: pairsort.group_sorted_keys(vals, gid, None, counts,
+                                                  largest))
+        ms = cuda_ms(run)
+        batched_ms = cuda_ms_batched(run)
+        plain_ms = cuda_ms(
+            lambda: pairsort.group_sorted_keys_ref(vals, gid, None, counts))
+        v = MaskedCol(vals, None)
+        seg = gb._group_quantile_segsort(v, gid, groups, 0.5, "linear",
+                                         counts, largest)
+        perm = gb._group_quantile(v, gid, groups, groups + 1, 0.5, "linear")
+        check(bool(((seg == perm) | (counts == 0)).all()),
+              f"pair sort {label}: the median differs from the permutation's")
+        del seg, perm
+        quantile_ms = cuda_ms(lambda: gb._group_quantile_segsort(
+            v, gid, groups, 0.5, "linear", counts, largest))
+        permutation_ms = cuda_ms(lambda: gb._group_quantile(
+            v, gid, groups, groups + 1, 0.5, "linear"))
+        bound = pair_sort_bound_ms(rows)
+        log(f"pair sort {label} N={rows} groups={groups} largest={largest} "
+            f"ok (exact) kernel_ms={ms!r} batched_ms={batched_ms!r} "
+            f"plain_ms={plain_ms!r} bound_ms={bound!r} share={bound / ms!r} "
+            f"median: key sort ms={quantile_ms!r} permutation "
+            f"ms={permutation_ms!r} [{card}]")
+        cases.append({"label": label, "N": rows, "groups": groups,
+                      "largest": largest, "ms": ms, "batched_ms": batched_ms,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "share": bound / ms, "quantile_ms": quantile_ms,
+                      "permutation_ms": permutation_ms})
+        del gid, vals, counts, v
+    return cases
+
+
 # slots of each kernel's headline case in the kernels line
 REPORTED_SLOTS = {"count_hist": None, "groupby_sums2": "bool",
                   "seg_sums_exact": "int64", "groupby_sums": "float64"}
@@ -3414,6 +3507,11 @@ def main() -> None:
         surface_phase(hdk_tpu_torch, card, hist,
                       sizes=json.loads(_arg("--sizes", "{}")))
         return
+    if "--phase16" in sys.argv:
+        # phase 16 alone (no contract line)
+        del hdk
+        pair_sort_phase(card)
+        return
 
     t0 = time.perf_counter()
     taxi = gen_taxi(TAXI_ROWS)
@@ -3455,9 +3553,13 @@ def main() -> None:
           f"a main-path reduction built its id array ({sources})")
     log_device_cache("phase 4")
 
-    # phases 5-6: the sort route, its launches counted apart
+    # phases 5-6: the sort route, its launches counted apart; the holistic
+    # MEDIAN and QUANTILE must launch the pair sort
+    from hdk_tpu_torch.kernels import pairsort
+
     torch.cuda.empty_cache()
     hist.reset_launches()
+    pairsort.group_sorted_keys.launches = 0
     with EntryRecorder(hist) as recorder:
         high_ndv_phase(hdk, card, hist)
         holistic_phase(hdk_tpu_torch, hdk, card, hist)
@@ -3466,6 +3568,9 @@ def main() -> None:
         check(n > 0, f"kernel {name} never launched on the sort route")
         log(f"sort route: kernel {name} launches={n} "
             f"largest_E={recorder.max_e[name]}")
+    pair_launches = pairsort.group_sorted_keys.launches
+    check(pair_launches > 0, "the pair sort never launched in phases 5-6")
+    log(f"phases 5-6: pair sort launches={pair_launches}")
     check("jax" not in sys.modules, "jax was imported")
     check("pandas" not in sys.modules, "pandas was imported")
 
@@ -3557,6 +3662,10 @@ def main() -> None:
     check("jax" not in sys.modules, "jax was imported")
     log_device_cache("phase 15")
 
+    # phase 16: the exact quantiles' pair sort against its plain version
+    torch.cuda.empty_cache()
+    pair_cases = pair_sort_phase(card)
+
     kernels = []
     for name, rec in report.items():
         # the headline case: taxi Q4's segment count, the kernel's widest
@@ -3585,6 +3694,18 @@ def main() -> None:
             "surface_path_launches": surface_launches[name],
             "cases": rec["cases"],
         })
+    # the pair sort at db-benchmark q6's shape, its launches those of the
+    # holistic MEDIAN and QUANTILE (phases 5-6)
+    q6 = pair_cases[0]
+    kernels.append({
+        "name": "pair_sort", "route": "cuda",
+        "source": "hdk_tpu_torch/csrc/pair_sort.cu", "replaces": None,
+        "launches": pair_launches, "max_abs_err": 0.0, "ms": q6["ms"],
+        "plain_ms": q6["plain_ms"], "bound_ms": q6["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"N={q6['N']} groups={q6['groups']}",
+        "cases": pair_cases,
+    })
     print(card)  # as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

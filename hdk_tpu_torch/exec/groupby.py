@@ -31,8 +31,11 @@ Aggregate cells: COUNT(*) counts rows; COUNT(col) counts non-null;
 SUM/MIN/MAX/AVG skip nulls and give NULL for all-null groups; AVG is a
 (sum, count) pair finalized at the end; STDDEV/VAR use (sum, sumsq, count)
 and CORR five moments and a count.  DISTINCT SUM/AVG and COUNT(DISTINCT)
-dedupe (group, value) pairs by a sort; QUANTILE sorts each group's values;
-APPROX_COUNT_DISTINCT and APPROX_QUANTILE build sketches
+dedupe (group, value) pairs by a sort; QUANTILE sorts each group's values
+(on a CUDA device, where every group fits ``pairsort.CAPACITY``, each
+group's value keys in their own run, ``kernels/pairsort.py``; else the
+permutation of the sorted pairs; the timer counts ``pair_segsort`` and
+``pair_lexsort``); APPROX_COUNT_DISTINCT and APPROX_QUANTILE build sketches
 (``ops/sketches.py``); TOP_K/BOTTOM_K sort (group, value) and give each
 group an array of its first k values, short groups padded with absent
 elements.
@@ -49,7 +52,8 @@ import torch
 
 from .. import types as t
 from ..ir.expr import AggKind
-from ..kernels import hist
+from ..kernels import hist, pairsort
+from ..kernels.pairsort import orderable_int64 as _orderable_int64
 from ..ops import onehot, sketches
 from ..ops import sortops as so
 from ..utils import timer
@@ -312,8 +316,9 @@ def _agg_slots(spec: AggSpec, gid: torch.Tensor, n: int) -> AggResult:
     nonnull_per_group = _seg_sum(nonnull, gid, num,
                                  is_ones=valid is None)[:n]
     if k == AggKind.QUANTILE:
-        return AggResult([_group_quantile(v, gid, n, num, float(spec.arg1),
-                                          spec.interpolation),
+        return AggResult([_quantile_slot(v, gid, n, num, float(spec.arg1),
+                                         spec.interpolation,
+                                         nonnull_per_group),
                           nonnull_per_group])
     if k in (AggKind.MIN, AggKind.MAX, AggKind.SAMPLE,
              AggKind.SINGLE_VALUE):
@@ -397,11 +402,61 @@ def _count_distinct(v: MaskedCol, gid: torch.Tensor, n: int,
     return _seg_sum(so.changed(sg) | so.changed(sv), sg, num)[:n]
 
 
+def _quantile_slot(v: MaskedCol, gid: torch.Tensor, n: int, num: int,
+                   q: float, interpolation: str,
+                   counts: torch.Tensor) -> torch.Tensor:
+    """Exact per-group quantile of the non-null values, by one of two
+    routes that share no sort: where ``_segsort_largest`` admits the
+    groups, each group's value keys sorted in place
+    (``_group_quantile_segsort``); else the permutation of the sorted
+    (group, value) pairs (``_group_quantile``).  ``counts`` are the
+    groups' non-null rows.  The debug timer counts ``pair_segsort`` or
+    ``pair_lexsort``."""
+    largest = _segsort_largest(v.data.device, counts, pairsort.CAPACITY)
+    if largest is None:
+        timer.count("pair_lexsort")
+        return _group_quantile(v, gid, n, num, q, interpolation)
+    timer.count("pair_segsort")
+    return _group_quantile_segsort(v, gid, n, q, interpolation, counts,
+                                   largest)
+
+
+def _segsort_largest(device: torch.device, counts: torch.Tensor,
+                     capacity: int) -> Optional[int]:
+    """The largest group's count where the key-carrying route takes the
+    quantile: values on a CUDA device and every group within
+    ``capacity`` keys (the kernel's ``pairsort.CAPACITY``).  None sends
+    the CPU, a scalar quantile over more rows and skewed groups to the
+    permutation.  One host sync reads the count."""
+    if device.type != "cuda" or counts.numel() == 0:
+        return None
+    largest = int(counts.max())
+    return largest if largest <= capacity else None
+
+
+def _quantile_at(value_at, start: torch.Tensor, cnt: torch.Tensor, q: float,
+                 interpolation: str) -> torch.Tensor:
+    """Each group's quantile from its sorted run of ``cnt`` values from
+    ``start``: the values at the floor and ceiling of ``q * (cnt - 1)``
+    (``value_at`` reads positions), "lower", "higher" or "linear" between
+    them."""
+    pos = q * torch.clamp(cnt - 1, min=0).to(torch.float64)
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.ceil(pos).to(torch.int64)
+    lo_v = value_at(start + lo)
+    hi_v = value_at(start + hi)
+    if interpolation == "lower":
+        return lo_v
+    if interpolation == "higher":
+        return hi_v
+    return lo_v + (hi_v - lo_v) * (pos - lo.to(torch.float64))
+
+
 def _group_quantile(v: MaskedCol, gid: torch.Tensor, n: int, num: int,
                     q: float, interpolation: str) -> torch.Tensor:
-    """Exact per-group quantile of the non-null values: sort (group,
-    value) and read the values at the quantile's position in each
-    group's run ("lower", "higher" or "linear" between them)."""
+    """Exact per-group quantile of the non-null values through the
+    permutation: sort (group, value) and read the values at the
+    quantile's position in each group's run."""
     fvals = v.data.to(torch.float64)
     perm, sg, _ = _sorted_pairs(v, gid, num, _orderable_int64(fvals))
     sv = fvals[perm]
@@ -411,35 +466,32 @@ def _group_quantile(v: MaskedCol, gid: torch.Tensor, n: int, num: int,
     counts = _seg_sum(torch.ones(sg.shape, dtype=torch.bool,
                                  device=sg.device), sg, num, is_ones=True)
     start = (torch.cumsum(counts, 0) - counts)[:n]
-    cnt = counts[:n]
-    pos = q * torch.clamp(cnt - 1, min=0).to(torch.float64)
-    lo = torch.floor(pos).to(torch.int64)
-    hi = torch.ceil(pos).to(torch.int64)
-    lo_v = sv[torch.clamp(start + lo, 0, total - 1)]
-    hi_v = sv[torch.clamp(start + hi, 0, total - 1)]
-    if interpolation == "lower":
-        return lo_v
-    if interpolation == "higher":
-        return hi_v
-    return lo_v + (hi_v - lo_v) * (pos - lo.to(torch.float64))
+    return _quantile_at(lambda i: sv[torch.clamp(i, 0, total - 1)], start,
+                        counts[:n], q, interpolation)
 
 
-def _orderable_int64(data: torch.Tensor) -> torch.Tensor:
-    """Map values to int64 preserving order (floats via the IEEE
-    total-order trick: negative patterns flip all but the sign bit;
-    +/-0.0 compare equal, NaN sorts above +inf)."""
-    if data.dtype == torch.float32:
-        b = data.view(torch.int32)
-        o = b ^ ((b >> 31) & 0x7FFFFFFF)
-        o = torch.where(data == 0, 0, o)
-        return o.to(torch.int64)
-    if data.is_floating_point():
-        x = data.to(torch.float64)
-        bits = x.view(torch.int64)
-        o = bits ^ ((bits >> 63) & 0x7FFFFFFFFFFFFFFF)
-        o = torch.where(x == 0, 0, o)
-        return torch.where(torch.isnan(x), 0x7FF8000000000000, o)
-    return data.to(torch.int64)
+def _group_quantile_segsort(v: MaskedCol, gid: torch.Tensor, n: int,
+                            q: float, interpolation: str,
+                            counts: torch.Tensor,
+                            largest: int) -> torch.Tensor:
+    """Exact per-group quantile of the non-null values without a
+    permutation: ``pairsort.group_sorted_keys`` sorts each group's value
+    keys in its own run, and the two keys a group reads turn back into
+    values.  Equal to ``_group_quantile`` by ``==`` (NaN where NaN),
+    but for a zero read from the runs, which is +0.0 where the
+    permutation may give -0.0; SQL compares the two as equal.  A group
+    without values reads 0."""
+    fvals = v.data.to(torch.float64)
+    rows = fvals.shape[0]
+    if rows == 0:
+        return torch.zeros((n,), dtype=torch.float64, device=gid.device)
+    with timer.DebugTimer("agg:pair_sort"):
+        keys, start = pairsort.group_sorted_keys(fvals, gid, v.mask, counts,
+                                                 largest)
+    out = _quantile_at(
+        lambda i: pairsort.values_of(keys[torch.clamp(i, 0, rows - 1)]),
+        start, counts, q, interpolation)
+    return torch.where(counts > 0, out, 0.0)
 
 
 def scalar_keys(nrows: int, row_mask: Optional[torch.Tensor],

@@ -36,8 +36,9 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # each source and the number of parts its entry points are split into:
 # hist.cu f32 | f64; int_hist.cu counts | bool | int8 | int16 | int32 |
-# int64 (a part of 48 kernels builds in about a fifth of the time of all)
-SOURCES = {"hist.cu": 2, "int_hist.cu": 6}
+# int64 (a part of 48 kernels builds in about a fifth of the time of all);
+# pair_sort.cu one part (three kernels)
+SOURCES = {"hist.cu": 2, "int_hist.cu": 6, "pair_sort.cu": 1}
 HEADERS = ("dense_gid.cuh",)  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -65,7 +66,8 @@ _KEYS = ctypes.POINTER(DenseKeysC)  # null: the ids come from gid
 # n_rows, n_slots, n_entries, out, mode, keys, stream); csrc/int_hist.cu
 # (K2-K4): (gid, [column pointers,] n_rows, [n_slots,] e_lo, n_entries,
 # [out_stride,] out, mode, keys, stream) over the entries e_lo .. e_lo +
-# n_entries of gid
+# n_entries of gid; csrc/pair_sort.cu: (vals, gid, valid, n_rows, n_groups,
+# max_count, starts, counts, cursor, work, out, stream)
 _INT_COLS = [_P, _COLS, _I, _I, _I, _I, _I, _P, ctypes.c_int, _KEYS, _P]
 _SIGNATURES = {
     **{f"hdk_groupby_sums_cols_{sfx}":
@@ -75,6 +77,7 @@ _SIGNATURES = {
     **{f"hdk_seg_sums_exact_{sfx}": _INT_COLS
        for sfx in ("i8", "i16", "i32", "i64")},
     "hdk_groupby_sums2_b8": _INT_COLS,
+    "hdk_pair_sort": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -45,9 +45,13 @@ Named counters (``COUNTERS``) go on the innermost open span too:
 ``count(name)`` adds to it while the timer is on.  ``exec/groupby.py``
 counts ``gid_array`` for a dense-route or scalar reduction that builds
 the group-id array, ``gid_keys`` for one whose ids the histogram step
-derives from the keys.  Its spans ``agg:gid_array`` (building the array)
-and ``agg:pair_sort`` (the sort of (group, value) pairs behind
-quantiles, DISTINCT and TOP_K) hang under the step that runs them.
+derives from the keys; for each exact quantile reduction it counts
+``pair_segsort`` where each group's value keys are sorted in place (the
+pair-sort kernel) and ``pair_lexsort`` where the permutation of the
+sorted (group, value) pairs is built.  Its spans ``agg:gid_array``
+(building the array) and ``agg:pair_sort`` (the sort of (group, value)
+pairs behind quantiles, DISTINCT and TOP_K, either route) hang under the
+step that runs them.
 
 ``span_totals()`` sums self times (a span's ms less the ms of the spans
 opened inside it), syncs and counters by span name over every span
@@ -72,7 +76,7 @@ _capture = None  # the warning state the open roots count syncs in
 _roots_open = 0  # roots open, every thread
 _totals: Dict[str, list] = {}
 _lock = threading.Lock()
-COUNTERS = ("gid_array", "gid_keys")
+COUNTERS = ("gid_array", "gid_keys", "pair_segsort", "pair_lexsort")
 
 
 def enable_debug_timer(on: bool = True) -> None:

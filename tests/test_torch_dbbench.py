@@ -6,7 +6,8 @@ dbbench.py``) agrees with a brute-force loop over each group, and
 several seeds.  All ten questions of ``duckdb/groupby-duckdb.R`` run and
 agree with small numpy answers: the benchmark's check holds only q6 and
 q9 (the others answer 1e6 rows and more at 1e8), the tests hold all.
-The ``cuda`` twin runs q6 and q9 on the card and skips without one.
+The ``cuda`` twin runs q6 and q9 on the card, q6's median by the
+key-carrying pair sort, and skips without one.
 Nothing here imports jax.
 """
 
@@ -22,6 +23,7 @@ import torch
 
 import hdk_tpu_torch
 from hdk_tpu_torch.exec import groupby as gb
+from hdk_tpu_torch.utils import timer
 from olap_bench import checks, harness, traffic
 from olap_bench.data import common, dbbench as gen
 from olap_bench.reference import dbbench as ref
@@ -331,9 +333,19 @@ def test_sql_agrees_with_the_reference_on_the_card(card, seed):
     tables = gen.generate(CONF, seed, 0.05)
     hdk = _session(CONF, tables, device=card)
     gb.reset_gid_sources()
-    _check_q6_q9(hdk, tables)
+    timer.enable_debug_timer(True)
+    try:
+        with timer.DebugTimer("query"):
+            _check_q6_q9(hdk, tables)
+        totals = timer.span_totals()
+    finally:
+        timer.enable_debug_timer(False)
     sources = gb.gid_sources()
     assert sources["keys"] == 0 and sources["array"] >= 2
+    # q6's median sorts each group's keys in place: ~500 rows a group
+    routes = [sum(t.get(c, 0) for t in totals.values())
+              for c in ("pair_segsort", "pair_lexsort")]
+    assert routes == [1, 0]
 
 
 # --- imports ------------------------------------------------------------------
@@ -343,7 +355,11 @@ def test_sql_agrees_with_the_reference_on_the_card(card, seed):
     os.path.join(harness.ROOT, "olap_bench", "metrics",
                  "gid_array_per_query.py"),
     os.path.join(harness.ROOT, "olap_bench", "metrics",
-                 "sort_kernel_pct.py")], ids=os.path.basename)
+                 "sort_kernel_pct.py"),
+    os.path.join(harness.ROOT, "olap_bench", "metrics",
+                 "pair_segsort_per_query.py"),
+    os.path.join(harness.ROOT, "olap_bench", "metrics",
+                 "pair_sort_kernel_pct.py")], ids=os.path.basename)
 def test_nothing_here_imports_jax(path):
     tree = ast.parse(open(path).read(), path)
     names = {a.name.split(".")[0] for n in ast.walk(tree)
