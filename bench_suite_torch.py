@@ -16,11 +16,11 @@ Data, seeds and sizes are the JAX package's; ``--scale`` (default 0.1)
 multiplies every row count.  Each config runs in a fresh process of its
 own; a config whose process fails fails the run.  Each record
 (``RECORD_KEYS``) has rows/s (probe rows for a join), the cold/warm
-split, the median and min of three warm samples, the builds,
-``bytes_ideal``'s share of the card's memory rate and the kernel
-launches of the timed runs.  After them the query's result is held
-against its numpy oracle (``bench_common_torch``) at the size it was
-timed; a difference fails the config.  The records go to stdout, one
+split, the median and min of three warm samples, the builds (0: the
+port compiles no step), ``bytes_ideal``'s share of the card's memory
+rate and the kernel launches of the timed runs.  After them the query's
+result is held against its numpy oracle (``bench_common_torch``) at the
+size it was timed; a difference fails the config.  The records go to stdout, one
 JSON line each, and together to ``--out`` (default
 ``bench_torch_out/bench_suite.json``).
 """
@@ -79,15 +79,13 @@ def bench_query(fn, hdk, iters=3, warmup=1):
     * ``seconds`` / ``seconds_min`` -- median/min of 3 warm throughput
       samples (hdk_tpu_torch.utils.benchtime), all in ``seconds_samples``;
       ``latency_seconds`` the median of their synced latencies;
-    * ``jit_builds`` -- the executor's code-cache misses in the cold run;
-    * ``warm_builds`` -- misses after it (0 = fully cached).
+    * ``jit_builds`` / ``warm_builds`` -- 0: the JAX package's record
+      counts its jit builds there, and the port runs eagerly, compiling
+      no step.
     """
-    cache = hdk._executor.code_cache
-    misses0 = cache.misses
     t0 = time.perf_counter()
     benchtime.sync(fn())
     cold = time.perf_counter() - t0
-    misses_cold = cache.misses
     runs = [benchtime.measure(fn, warmup=warmup, iters=max(iters, 3))
             for _ in range(3)]
     samples = sorted(float(m["throughput_s"]) for m in runs)
@@ -98,8 +96,8 @@ def bench_query(fn, hdk, iters=3, warmup=1):
         "seconds_samples": samples,
         "latency_seconds": lat[1],
         "cold_seconds": cold,
-        "jit_builds": misses_cold - misses0,
-        "warm_builds": cache.misses - misses_cold,
+        "jit_builds": 0,
+        "warm_builds": 0,
     }
 
 

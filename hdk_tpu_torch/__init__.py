@@ -685,8 +685,7 @@ class HDK:
         ran inside a step shows that step's time and its own live rows; a
         node of a join's build subtree that recycled build tables made
         unnecessary says so ("recycled: not run").
-        Trailer lines give the NDV sample's host time and the step builds
-        of the run."""
+        A trailer line gives the NDV sample's host time, when one ran."""
         from .exec.explain import explain_dag
         from .exec.optimizer import optimize_dag
 
@@ -706,7 +705,6 @@ class HDK:
         ex._step_times = {}
         ex._fused_times = {}
         samp0 = ex._ndv_sample_seconds
-        builds0 = ex.code_cache.misses
         try:
             ex.execute(dag)
         finally:
@@ -723,10 +721,6 @@ class HDK:
         if samp > 0:
             out += (f"\n-- sampling estimators (NDV): "
                     f"{samp * 1000:.1f} ms of host readback\n")
-        # a step build is one step closure made (the JAX package's jit
-        # builds): what a cold run pays on the host
-        out += (f"\n-- step builds this run: "
-                f"{ex.code_cache.misses - builds0}\n")
         return out
 
     def _run(self, node, **options) -> QueryResult:

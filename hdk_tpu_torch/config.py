@@ -77,8 +77,9 @@ class JoinConfig:
 class ExecConfig:
     """reference: Shared/Config.h:70-130 (ExecConfig)."""
 
-    device: str = "auto"  # auto|tpu|cpu — jax platform selection
-    enable_multifrag_results: bool = True
+    # not read by the engine: a session runs on HDK(device=...), "cuda"
+    # (the default, a CUDA card) or "cpu"
+    device: str = "auto"
     # external-executor escape hatch: a query the native engine rejects
     # re-runs through in-memory SQLite over the session's tables
     # (reference: ExternalExecutor.h:50, exec.enable_interop,
@@ -99,16 +100,6 @@ class ExecConfig:
     # 0 = auto (half the device cache budget)
     scan_stream_bytes: int = 0
     allow_retry: bool = True  # overflow / out-of-slots retry ladder
-    interpret_pallas: bool = False  # run pallas kernels interpreted
-    # opt-in: route mid-size COUNT group-bys through the Pallas one-hot
-    # kernel (ops/pallas_groupby.py).  Default off: the factored one-hot
-    # MXU contraction (ops/onehot.py) measured 3x faster (9 ms vs 30 ms
-    # at E=2816, 1e7 rows) — the kernel stays for A/B comparison
-    prefer_pallas_groupby: bool = False
-    # opt-in: integer one-hot contractions run the VMEM-factored Pallas
-    # kernel (ops/pallas_hist.py) instead of the XLA einsum — one HBM
-    # pass over keys+slots; validate on real TPU before defaulting on
-    pallas_onehot: bool = False
     streaming_topn_max: int = 100000
     # (parallel_top_min dissolved: CPU-thread top-k tiling has no TPU
     # analog — lax.top_k is a single fused device op)
@@ -152,7 +143,6 @@ class CacheConfig:
 
     enable_hashtable_cache: bool = True
     hashtable_cache_size: int = 1 << 32
-    enable_compiled_cache: bool = True  # rely on jax jit cache
 
 
 @dataclass
@@ -173,7 +163,6 @@ class DistConfig:
     single-node; see SURVEY.md §2.8)."""
 
     enable: bool = False  # shard scans over all local devices
-    mesh_axis: str = "frag"
     num_devices: int = 0  # 0 = all visible devices (scaling benches cap it)
     # (shuffle_partitions_per_device dissolved: all_to_all exchanges one
     # buffer per (src, dst) pair; multi-partition-per-device is a GPU

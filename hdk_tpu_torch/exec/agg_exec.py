@@ -178,34 +178,24 @@ class AggExecMixin:
 
     def _group_step(self, node: nd.Aggregate, source: ExecTable, chain,
                     src_node, used, layout, key_ranges, cap: int):
-        """The cached step grouping the source: fn(sub_cols, row_mask) ->
+        """The step grouping the source: fn(sub_cols, row_mask) ->
         (key_cols, agg_cols, exists, n_groups); n_groups is None on the
         dense route."""
         nrows0 = source.nrows
         size = len(source.fields)
-        route = (f"layout={layout.mins}/{layout.sizes}" if layout is not None
-                 else f"sortcap={cap}/rng={key_ranges}")
-        key = chain_key(_schema_sig(source), chain, node,
-                        self._dict_generation_sig(chain, node)
-                        + f"{route}u{used}/n{nrows0}")
 
-        def build():
-            def fn(sub_cols, row_mask):
-                resolve, rm = self._terminal_env(src_node, sub_cols, used,
-                                                 size, chain, row_mask,
-                                                 nrows0)
-                keys = [_broadcast(self.scalar.evaluate(k, resolve), nrows0)
-                        for k in node.keys]
-                specs = self._build_specs(node, resolve, nrows0)
-                if layout is not None:
-                    return (*gb.groupby_perfect(keys, layout, specs, rm),
-                            None)
-                return gb.groupby_sort(keys, specs, cap, row_valid=rm,
-                                       key_ranges=key_ranges)
+        def fn(sub_cols, row_mask):
+            resolve, rm = self._terminal_env(src_node, sub_cols, used, size,
+                                             chain, row_mask, nrows0)
+            keys = [_broadcast(self.scalar.evaluate(k, resolve), nrows0)
+                    for k in node.keys]
+            specs = self._build_specs(node, resolve, nrows0)
+            if layout is not None:
+                return (*gb.groupby_perfect(keys, layout, specs, rm), None)
+            return gb.groupby_sort(keys, specs, cap, row_valid=rm,
+                                   key_ranges=key_ranges)
 
-            return fn
-
-        return self.code_cache.get_or_build(key, build)
+        return fn
 
     def _exec_fused_agg_sort(self, sort_node: nd.Sort, node: nd.Aggregate,
                              results) -> Optional[ExecTable]:
@@ -318,29 +308,17 @@ class AggExecMixin:
         if plan is not None:
             return self._exec_aggregate_fragmented(
                 node, source, chain, src_node, used, None, plan)
-        key = chain_key(_schema_sig(source), chain, node,
-                        self._dict_generation_sig(chain, node)
-                        + f"nogroup/u{used}/n{source.nrows}")
         nrows0 = source.nrows
-        size = len(source.fields)
-
-        def build():
-            def fn(sub_cols, row_mask):
-                resolve, rm = self._terminal_env(src_node, sub_cols, used,
-                                                 size, chain, row_mask,
-                                                 nrows0)
-                specs = self._build_specs(node, resolve, nrows0)
-                scalars = gb.nogroup_agg(specs, nrows0, rm, self.device)
-                # one row; TOP_K/BOTTOM_K give one array of k elements
-                return [MaskedCol(s.data.reshape((1,) + s.data.shape),
-                                  s.mask.reshape((1,) + s.mask.shape)
-                                  if s.mask is not None else None)
-                        for s in scalars]
-
-            return fn
-
-        fn = self.code_cache.get_or_build(key, build)
-        cols = fn([source.columns[i] for i in used], source.row_mask)
+        resolve, rm = self._terminal_env(
+            src_node, [source.columns[i] for i in used], used,
+            len(source.fields), chain, source.row_mask, nrows0)
+        specs = self._build_specs(node, resolve, nrows0)
+        scalars = gb.nogroup_agg(specs, nrows0, rm, self.device)
+        # one row; TOP_K/BOTTOM_K give one array of k elements
+        cols = [MaskedCol(s.data.reshape((1,) + s.data.shape),
+                          s.mask.reshape((1,) + s.mask.shape)
+                          if s.mask is not None else None)
+                for s in scalars]
         return ExecTable(list(node.fields), list(node.output_types), cols, 1)
 
     # -- fragment-streamed aggregation --------------------------------------
@@ -432,28 +410,19 @@ class AggExecMixin:
         self._frag_stream_chunks = len(chunks)
         n = layout.entry_count if layout is not None else 1
         size = len(source.fields)
-        key = chain_key(_schema_sig(source), chain, node,
-                        self._dict_generation_sig(chain, node)
-                        + f"fragstream/{n}/u{used}"
-                        + (f"/l{layout.mins}{layout.sizes}" if layout
-                           else ""))
 
-        def build():
-            def fn(sub_cols, rows, pad_rm=None):
-                resolve, rm = self._terminal_env(src_node, sub_cols, used,
-                                                 size, chain, pad_rm, rows)
-                specs = self._build_specs(node, resolve, rows)
-                if layout is not None:
-                    keys = [_broadcast(self.scalar.evaluate(k, resolve),
-                                       rows) for k in node.keys]
-                    src = gb.dense_keys(keys, layout, rm)
-                else:
-                    src = gb.scalar_keys(rows, rm, self.device)
-                return gb.reduce_slots(specs, src, n)
+        def fn(sub_cols, rows, pad_rm=None):
+            resolve, rm = self._terminal_env(src_node, sub_cols, used, size,
+                                             chain, pad_rm, rows)
+            specs = self._build_specs(node, resolve, rows)
+            if layout is not None:
+                keys = [_broadcast(self.scalar.evaluate(k, resolve), rows)
+                        for k in node.keys]
+                src = gb.dense_keys(keys, layout, rm)
+            else:
+                src = gb.scalar_keys(rows, rm, self.device)
+            return gb.reduce_slots(specs, src, n)
 
-            return fn
-
-        fn = self.code_cache.get_or_build(key, build)
         acc = counts = None
         fused_rows = {}
         for r0, r1 in chunks:

@@ -7,11 +7,10 @@ not compact: they build a row mask that the terminal consumes (dead rows
 go to a discard segment of the group-by, sort last, become NULL join
 keys, ride the union's row mask, or sort past the live rows of a window
 function, which reads the row mask of the Filters before its Project).
-An Aggregate consumed only by a Sort runs with it as one step.  Steps are
-cached by structural plan key (the shared ``codecache``); the cached
-artifact is the step's Python closure, since PyTorch runs eagerly and has
-no ``jit`` to wrap.  Joins run in ``join_exec.py``, window functions in
-``window.py``.
+An Aggregate consumed only by a Sort runs with it as one step.  PyTorch
+runs eagerly, so a step runs its body for the query in hand: nothing is
+compiled or cached per step.  Joins run in ``join_exec.py``, window
+functions in ``window.py``.
 
 Array columns are 2-D (rows x width) with a same-shaped element mask;
 they ride sorts, joins and unions as rows of their tensors, and UNNEST
@@ -45,12 +44,11 @@ from ..utils.logger import get_channel
 from ..utils.timer import DebugTimer
 from . import sort as srt
 from .agg_exec import AggExecMixin, _window
-from .codecache import CodeCache, chain_key
 from .dist_exec import DistExecMixin
 from .common import (ExecTable, _CHAIN_NODES, _IdentityKeyedCache,
                      _LazyScanColumns,
                      _PlanArtifactCache, _PrunedScanColumns, _broadcast,
-                     _column_demand, _consumer_kinds, _schema_sig)
+                     _column_demand, _consumer_kinds)
 from .explain import _node_line
 from .feedback import PlanChoiceFeedback, RouteFeedback, synchronize
 from .join_exec import JoinExecMixin
@@ -72,7 +70,6 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
         self.device = device
         self.udfs = udfs  # UdfRegistry (udf.py) or None
         self.scalar = ScalarCompiler(dicts, device, udfs=udfs)
-        self.code_cache = CodeCache()
         # probed perfect layouts keyed by plan, valid while the probed
         # input tensors are alive
         self._probe_cache: Dict[str, tuple] = {}
@@ -372,11 +369,12 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
 
     def _dict_generation_sig(self, chain: List[nd.Node],
                              terminal: Optional[nd.Node]) -> str:
-        """Dictionary sizes of the dictionaries a step reads: host-built
-        code tables depend on them, so a grown dictionary keys a new
-        step.  A step that calls a UDF also keys on the registry's
-        generation, so re-registering a name builds a new step around the
-        new body; other steps keep theirs."""
+        """Dictionary sizes of the dictionaries a step reads: key values
+        depend on them, so a grown dictionary keys a new key-range probe,
+        NDV sample and route-feedback entry.  A step that calls a UDF
+        also keys on the registry's generation, so re-registering a name
+        invalidates what was cached over the old body; other plans keep
+        theirs."""
         ids = set()
         uses_udf = False
 
@@ -556,23 +554,11 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
         has_proj = any(isinstance(n, nd.Project) for n in chain)
         used = (list(range(len(source.fields))) if not has_proj
                 else self._used_columns(src_node, chain, []))
-        key = chain_key(_schema_sig(source), chain, None,
-                        self._dict_generation_sig(chain, None)
-                        + f"u{used}/n{source.nrows}")
-        nrows = source.nrows
-        size = len(source.fields)
-
-        def build():
-            def fn(sub_cols, row_mask):
-                source_cols = self._expand_cols(sub_cols, used, size)
-                env, final, rm = self._chain_env(src_node, source_cols,
-                                                 chain, row_mask, nrows=nrows)
-                return env[final.id], rm
-
-            return fn
-
-        fn = self.code_cache.get_or_build(key, build)
-        cols, rm = fn([source.columns[i] for i in used], source.row_mask)
+        source_cols = self._expand_cols([source.columns[i] for i in used],
+                                        used, len(source.fields))
+        env, final, rm = self._chain_env(src_node, source_cols, chain,
+                                         source.row_mask, nrows=source.nrows)
+        cols = env[final.id]
         return ExecTable(list(node.fields), list(node.output_types), cols,
                          source.nrows, rm)
 
@@ -593,11 +579,7 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
         has_proj = any(isinstance(n, nd.Project) for n in chain)
         used = (list(range(len(source.fields))) if not has_proj
                 else self._used_columns(src_node, chain, []))
-        key = chain_key(_schema_sig(source), chain, node,
-                        self._dict_generation_sig(chain, node)
-                        + f"u{used}/n{source.nrows}")
         nrows0 = source.nrows
-        size = len(source.fields)
         limit, offset = node.limit, node.offset
         topn = (offset + limit
                 if limit is not None and 0 < offset + limit < nrows0
@@ -611,36 +593,24 @@ class Executor(AggExecMixin, JoinExecMixin, DistExecMixin):
                                        (source, chain, src_node))
             if out is not None:
                 return out
-        key += f"/{self._topn_route}"
-
-        def build():
-            def fn(sub_cols, row_mask):
-                source_cols = self._expand_cols(sub_cols, used, size)
-                env, final, rm = self._chain_env(src_node, source_cols,
-                                                 chain, row_mask,
-                                                 nrows=nrows0)
-                cols = env[final.id]
-                scols = [self._sortable(cols[f.field_index], ty)
-                         for f, ty in zip(node.sort_fields, sort_types)]
-                skeys = srt.sort_keys_int64(
-                    scols, [f.desc for f in node.sort_fields],
-                    [f.nulls_first for f in node.sort_fields])
-                perm = (srt.lex_topn if streaming
-                        else srt.full_topn)(skeys, topn, rm)
-                out = [MaskedCol(c.data[perm],
-                                 c.mask[perm] if c.mask is not None else None)
-                       for c in cols]
-                live = (torch.tensor(nrows0, dtype=torch.int64,
-                                     device=self.device)
-                        if rm is None else rm.sum())
-                return out, _window(live, topn, limit, offset)
-
-            return fn
-
-        fn = self.code_cache.get_or_build(key, build)
-        cols, window = fn([source.columns[i] for i in used], source.row_mask)
-        return ExecTable(list(node.fields), list(node.output_types), cols,
-                         topn, window)
+        source_cols = self._expand_cols([source.columns[i] for i in used],
+                                        used, len(source.fields))
+        env, final, rm = self._chain_env(src_node, source_cols, chain,
+                                         source.row_mask, nrows=nrows0)
+        cols = env[final.id]
+        scols = [self._sortable(cols[f.field_index], ty)
+                 for f, ty in zip(node.sort_fields, sort_types)]
+        skeys = srt.sort_keys_int64(
+            scols, [f.desc for f in node.sort_fields],
+            [f.nulls_first for f in node.sort_fields])
+        perm = (srt.lex_topn if streaming else srt.full_topn)(skeys, topn, rm)
+        out = [MaskedCol(c.data[perm],
+                         c.mask[perm] if c.mask is not None else None)
+               for c in cols]
+        live = (torch.tensor(nrows0, dtype=torch.int64, device=self.device)
+                if rm is None else rm.sum())
+        return ExecTable(list(node.fields), list(node.output_types), out,
+                         topn, _window(live, topn, limit, offset))
 
     def _sortable(self, col: MaskedCol, typ: t.Type) -> MaskedCol:
         """Dictionary strings order by string, not by code: codes map to

@@ -97,7 +97,7 @@ def synchronize(device: torch.device) -> None:
 def timed_sync(fn, *args, device: torch.device):
     """Run ``fn(*args)`` twice, each ending in a device synchronize, and
     time the second: (outputs, warm seconds).  The first run pays the
-    set-up (step builds, first launches), so an explored route is timed
+    set-up (first launches, allocator growth), so an explored route is timed
     warm, as the JAX package times its compiled program."""
     fn(*args)
     synchronize(device)

@@ -22,10 +22,10 @@ the row mask.  Where every aggregate is a sum (COUNT, SUM, AVG,
 STDDEV/VAR, none DISTINCT) the kernels derive each row's id from the keys
 on a CUDA device, at any segment count; other aggregates, more than
 ``hist.MAX_KEYS`` keys or key types the kernels do not read build the
-array once (``perfect_gid``).  ``gid_sources()`` counts the two, and
-so do the debug timer's counters ``gid_keys`` and ``gid_array``; the
-array's build is the span ``agg:gid_array``, the sort of (group, value)
-pairs behind DISTINCT, quantiles and TOP_K the span ``agg:pair_sort``.
+array once (``perfect_gid``).  The debug timer's counters ``gid_keys``
+and ``gid_array`` count the two; the array's build is the span
+``agg:gid_array``, the sort of (group, value) pairs behind DISTINCT,
+quantiles and TOP_K the span ``agg:pair_sort``.
 
 Aggregate cells: COUNT(*) counts rows; COUNT(col) counts non-null;
 SUM/MIN/MAX/AVG skip nulls and give NULL for all-null groups; AVG is a
@@ -554,19 +554,6 @@ def _reduce_specs(specs: Sequence[AggSpec], gid: hist.GidSource, n: int
 # aggregates whose every slot is a sum: the kernels take a key source
 _SUM_KINDS = frozenset({AggKind.COUNT, AggKind.SUM, AggKind.AVG,
                         AggKind.STDDEV_SAMP, AggKind.VAR_SAMP})
-_GID_SOURCES = {"keys": 0, "array": 0}
-
-
-def gid_sources() -> Dict[str, int]:
-    """Dense-route and scalar reductions whose key source went to the
-    histogram step (``keys``: on a CUDA device the kernels derived the
-    ids), against those that built the id array (``array``)."""
-    return dict(_GID_SOURCES)
-
-
-def reset_gid_sources() -> None:
-    for k in _GID_SOURCES:
-        _GID_SOURCES[k] = 0
 
 
 def _takes_keys(specs: Sequence[AggSpec], src: hist.DenseKeys) -> bool:
@@ -587,7 +574,6 @@ def reduce_slots(specs: Sequence[AggSpec], gid: hist.GidSource, n: int
     num = n + 1  # an array's discard segment; a key source drops rows
     if isinstance(gid, hist.DenseKeys):
         keyed = _takes_keys(specs, gid)
-        _GID_SOURCES["keys" if keyed else "array"] += 1
         timer.count("gid_keys" if keyed else "gid_array")
         if keyed:
             num = n

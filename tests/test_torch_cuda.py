@@ -23,9 +23,9 @@ import torch
 
 import dense_key_cases
 import hdk_tpu_torch
-from hdk_tpu_torch.exec import groupby as gb
 from hdk_tpu_torch.kernels import hist
 from hdk_tpu_torch.ops import onehot
+from hdk_tpu_torch.utils import timer
 
 pytestmark = pytest.mark.cuda
 
@@ -320,12 +320,18 @@ def test_benchmark_shapes_take_keys(cuda, monkeypatch, config, mix, scale):
             hdk.import_arrow(harness.to_arrow(
                 cols, conf["tables"][name]["columns"]), name=name)
         shapes = traffic.build(traffic.load(mix), hdk, rows, conf)
-        gb.reset_gid_sources()
         hist.reset_launches()
-        out.append([[s.call().to_numpy() for s in shapes]
-                    for _ in range(3)][-1])
-    sources = gb.gid_sources()
-    assert sources["array"] == 0 and sources["keys"] >= 3 * len(shapes)
+        timer.enable_debug_timer(True)
+        try:
+            with timer.DebugTimer("shapes"):
+                out.append([[s.call().to_numpy() for s in shapes]
+                            for _ in range(3)][-1])
+            totals = timer.span_totals()
+        finally:
+            timer.enable_debug_timer(False)
+    keyed, array = (sum(t.get(c, 0) for t in totals.values())
+                    for c in ("gid_keys", "gid_array"))
+    assert array == 0 and keyed >= 3 * len(shapes)
     assert hist.launches()["count_hist"] > 0
     _same_results([s.name for s in shapes], out)
 

@@ -22,7 +22,6 @@ import pytest
 import torch
 
 import hdk_tpu_torch
-from hdk_tpu_torch.exec import groupby as gb
 from hdk_tpu_torch.utils import timer
 from olap_bench import checks, harness, traffic
 from olap_bench.data import common, dbbench as gen
@@ -216,22 +215,32 @@ def test_q6_refuses_v3_with_more_decimals():
 # --- the port against the reference -----------------------------------------
 
 def _check_q6_q9(hdk, tables):
-    for q in MIX["queries"]:
-        want = getattr(ref, q["reference"].split(":")[1])(tables)
-        got = hdk.sql(q["sql"]).to_numpy()
-        bad, rel, problem, where = checks.compare(got, want, q["compare"])
-        assert bad == 0, (q["name"], problem)
-        assert rel <= LIMIT / 100, (q["name"], rel, where)
+    """Run q6 and q9 against the reference under the debug timer: its
+    counters summed over every span, by name."""
+    timer.enable_debug_timer(True)
+    try:
+        with timer.DebugTimer("query"):
+            for q in MIX["queries"]:
+                want = getattr(ref, q["reference"].split(":")[1])(tables)
+                got = hdk.sql(q["sql"]).to_numpy()
+                bad, rel, problem, where = checks.compare(got, want,
+                                                          q["compare"])
+                assert bad == 0, (q["name"], problem)
+                assert rel <= LIMIT / 100, (q["name"], rel, where)
+        totals = timer.span_totals()
+    finally:
+        timer.enable_debug_timer(False)
+    return {c: sum(t.get(c, 0) for t in totals.values())
+            for c in timer.COUNTERS}
 
 
 @pytest.mark.parametrize("seed", [3, 2 ** 31 + 5, 2 ** 40 + 9])
 def test_sql_agrees_with_the_reference(seed):
     tables = gen.generate(CONF, seed, SCALE)
     hdk = _session(CONF, tables)
-    gb.reset_gid_sources()
-    _check_q6_q9(hdk, tables)
+    counts = _check_q6_q9(hdk, tables)
     # both questions build the id array on the dense route
-    assert gb.gid_sources() == {"keys": 0, "array": 2}
+    assert (counts["gid_keys"], counts["gid_array"]) == (0, 2)
 
 
 def _np_groupby(x, keys, aggs):
@@ -332,20 +341,10 @@ def card():
 def test_sql_agrees_with_the_reference_on_the_card(card, seed):
     tables = gen.generate(CONF, seed, 0.05)
     hdk = _session(CONF, tables, device=card)
-    gb.reset_gid_sources()
-    timer.enable_debug_timer(True)
-    try:
-        with timer.DebugTimer("query"):
-            _check_q6_q9(hdk, tables)
-        totals = timer.span_totals()
-    finally:
-        timer.enable_debug_timer(False)
-    sources = gb.gid_sources()
-    assert sources["keys"] == 0 and sources["array"] >= 2
+    counts = _check_q6_q9(hdk, tables)
+    assert counts["gid_keys"] == 0 and counts["gid_array"] >= 2
     # q6's median sorts each group's keys in place: ~500 rows a group
-    routes = [sum(t.get(c, 0) for t in totals.values())
-              for c in ("pair_segsort", "pair_lexsort")]
-    assert routes == [1, 0]
+    assert (counts["pair_segsort"], counts["pair_lexsort"]) == (1, 0)
 
 
 # --- imports ------------------------------------------------------------------

@@ -19,6 +19,7 @@ import hdk_tpu_torch
 from hdk_tpu_torch.exec import groupby as tgb
 from hdk_tpu_torch.exec.masked import from_numpy
 from hdk_tpu_torch.ops import onehot as tonehot
+from hdk_tpu_torch.utils import timer
 
 import dense_key_cases
 
@@ -300,20 +301,30 @@ def test_gid_sources(aggs, n_keys, want):
 
     tspecs = specs(hdk_tpu_torch, tgb, _tcol)
     jspecs = specs(hdk_tpu, jgb, _jcol)
-    tgb.reset_gid_sources()
+    timer.enable_debug_timer(True)
+    try:
+        with timer.DebugTimer("reduce"):
+            if n_keys:
+                lt = tgb.PerfectHashLayout(mins, sizes)
+                _kt, got, et = tgb.groupby_perfect(
+                    [_tcol(d, m) for d, m in cols], lt, tspecs,
+                    torch.from_numpy(rm))
+            else:
+                got = tgb.nogroup_agg(tspecs, rows, torch.from_numpy(rm),
+                                      "cpu")
+        totals = timer.span_totals()
+    finally:
+        timer.enable_debug_timer(False)
     if n_keys:
-        lt = tgb.PerfectHashLayout(mins, sizes)
         lj = jgb.PerfectHashLayout(mins, sizes, [False] * n_keys)
-        _kt, got, et = tgb.groupby_perfect([_tcol(d, m) for d, m in cols],
-                                           lt, tspecs, torch.from_numpy(rm))
         _kj, wanted, ej = jgb.groupby_perfect(
             [_jcol(d, m) for d, m in cols], lj, jspecs, jnp.asarray(rm))
         _same(et, ej)
     else:
-        got = tgb.nogroup_agg(tspecs, rows, torch.from_numpy(rm), "cpu")
         wanted = jgb.nogroup_agg(jspecs, rows, jnp.asarray(rm))
-    assert tgb.gid_sources() == {"keys": int(want == "keys"),
-                                 "array": int(want == "array")}
+    assert ([sum(t.get(c, 0) for t in totals.values())
+             for c in ("gid_keys", "gid_array")]
+            == [int(want == "keys"), int(want == "array")])
     exact = sum(1 for a in aggs if a in ("COUNT", "SUM", "MIN", "MAX",
                                          "COUNT_DISTINCT"))
     order = [i for i, a in enumerate(aggs) if a in ("COUNT", "SUM", "MIN",

@@ -1,8 +1,7 @@
 #!/usr/bin/env python
-"""TPC-H Q3 on hdk_tpu_torch, run by run: wall time, code-cache builds,
-the plan variants measured so far and the NDV sample's seconds, then
-EXPLAIN ANALYZE's step breakdown (the port's twin of
-tools/q3_analyze.py).
+"""TPC-H Q3 on hdk_tpu_torch, run by run: wall time, the plan variants
+measured so far and the NDV sample's seconds, then EXPLAIN ANALYZE's
+step breakdown (the port's twin of tools/q3_analyze.py).
 
     python tools/q3_analyze_torch.py [--scale 1.0] [--runs 8] [--no-analyze]
     python tools/q3_analyze_torch.py --device cpu --scale 0.001
@@ -37,13 +36,11 @@ def main(argv=None) -> None:
     suite.import_tables(hdk, suite.tpch_q3_tables(args.scale))
 
     for i in range(args.runs):
-        b0 = ex.code_cache.misses
         t0 = time.perf_counter()
         benchtime.sync(hdk.sql(suite.TPCH_Q3))
         secs = time.perf_counter() - t0
         variants = sorted({v for (_s, v) in ex._plan_feedback._fb._t})
-        print(f"run {i}: {secs:.4f}s  builds+{ex.code_cache.misses - b0} "
-              f"measured_variants={variants} "
+        print(f"run {i}: {secs:.4f}s  measured_variants={variants} "
               f"ndv_sample={ex._ndv_sample_seconds:.4f}s", flush=True)
     if not args.no_analyze:
         print("\n=== EXPLAIN ANALYZE ===", flush=True)
